@@ -1,0 +1,27 @@
+"""PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving slice.
+
+The JAX package beside this one is the reference each ported part is held
+against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on the
+serving path are CUDA kernels for Hopper (csrc/), built with nvcc on first
+use.  On CPU tensors each kernel wrapper runs its plain PyTorch version; on
+CUDA tensors it launches the kernel or raises.
+
+TF32 is switched off for every float32 matmul and convolution: the products
+that feed the Cholesky (Kmm, Linv @ Kmn, the posterior sandwich) ran at
+HIGHEST precision on the TPU, and TF32 keeps only ~3 decimal digits, which
+the jittered f32 Cholesky of Kmm cannot absorb.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .convert import smgp_from_numpy  # noqa: E402
+from .likelihoods import Gaussian  # noqa: E402
+from .models import SGP, SMGP, SVGP, precompute_posterior, precompute_smgp  # noqa: E402
+from .ops import launch_counts, reset_launch_counts  # noqa: E402
+from .ops.kernels import Matern32, SquaredExponential  # noqa: E402
+
+__all__ = ["Gaussian", "SGP", "SMGP", "SVGP", "Matern32", "SquaredExponential",
+           "launch_counts", "precompute_posterior", "precompute_smgp",
+           "reset_launch_counts", "smgp_from_numpy"]

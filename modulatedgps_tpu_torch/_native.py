@@ -1,0 +1,124 @@
+"""Build and load the package's CUDA kernels (csrc/*.cu).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens on first use, never at import, into ``_build/`` beside this file,
+under a name keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads the cached library.  A failed build
+raises with the compiler's output; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "build", "check", "require", "stream_ptr"]
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+_BUILD = _HERE / "_build"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: (argtypes) -> int cudaError_t.
+_SIGNATURES = {
+    "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda); "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> tuple[Path, float]:
+    """Compile csrc/*.cu into _build/ if needed; returns (library, seconds).
+
+    seconds is 0.0 when a library for these exact sources already exists.
+    """
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = _BUILD / f"libmgp_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, 0.0
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+    return out, seconds
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(what: str, t, dtype, device) -> None:
+    """Argument checks shared by the CUDA wrappers; no card is needed.
+
+    A tensor that requires grad is refused only while autograd records
+    (grad mode on): the kernels have no backward yet.  Under
+    torch.inference_mode() or torch.no_grad() nothing is recorded, so a
+    trainable parameter may feed them."""
+    import torch
+    if t.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward yet; gradients land "
+            "with the training slice (serve under torch.inference_mode())")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{what}: expected a tensor on {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

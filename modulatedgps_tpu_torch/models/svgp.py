@@ -1,0 +1,73 @@
+"""Sparse variational GP layer (inducing points, whitened posterior).
+
+Mirrors modulatedgps_tpu/models/svgp.py for serving: ``create``, ``kuu``
+and the diagonal ``predict_f``.  Kmn is built as kernel.K(Z, Xnew) and
+Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu [M, K], q_sqrt tril
+[K, M, M] (init: K stacked identities) or diagonal [M, K].
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import default_jitter
+from ..ops.conditionals import base_conditional, expand_independent_outputs
+from ..ops.kernels import Kernel
+from ..params import Parameter
+from ..utils.shapes import ShapeChecker
+
+__all__ = ["SVGP"]
+
+
+class SVGP(nn.Module):
+    def __init__(self, kernel: Kernel, Z: Parameter, q_mu: Parameter,
+                 q_sqrt: Parameter, *, whiten: bool = True,
+                 jitter: float | None = None):
+        super().__init__()
+        if not whiten:
+            raise NotImplementedError(
+                "the port serves whitened layers; the unwhitened conditional "
+                "waits for the port of pallas_linalg._trsm_t_kernel")
+        self.kernel = kernel
+        self.Z = Z
+        self.q_mu = q_mu
+        self.q_sqrt = q_sqrt
+        self.whiten = whiten
+        # None = default_jitter(dtype).  A whitened model must be evaluated
+        # at the jitter it was trained with, whatever dtype serves it.
+        self.jitter = jitter
+
+    @classmethod
+    def create(cls, kernel: Kernel, inducing_points, num_latent_gps: int = 1,
+               *, q_diag: bool = False, jitter: float | None = None,
+               dtype: torch.dtype = torch.float32,
+               device: torch.device | str = "cpu") -> "SVGP":
+        Z = torch.as_tensor(inducing_points, dtype=dtype, device=device)
+        M, K = Z.shape[0], num_latent_gps
+        q_mu = torch.zeros((M, K), dtype=dtype, device=device)
+        if q_diag:
+            q_sqrt = Parameter.from_value(torch.ones((M, K)), "positive",
+                                          dtype=dtype, device=device)
+        else:
+            eye = torch.eye(M, dtype=dtype, device=device)
+            q_sqrt = Parameter(eye.expand(K, M, M).clone(), "tril")
+        return cls(kernel, Parameter(Z), Parameter(q_mu), q_sqrt, jitter=jitter)
+
+    def kuu(self) -> torch.Tensor:
+        """K(Z, Z) + jitter I."""
+        Z = self.Z.value
+        jitter = default_jitter(Z.dtype) if self.jitter is None else self.jitter
+        eye = torch.eye(Z.shape[0], dtype=Z.dtype, device=Z.device)
+        return self.kernel.K(Z) + jitter * eye
+
+    def predict_f(self, Xnew: torch.Tensor, *, full_output_cov: bool = False):
+        """Marginal posterior q(f(Xnew)) at Xnew [N, D]: ([N, K], [N, K])."""
+        chk = ShapeChecker()
+        chk.check(self.Z.value, "M D", "Z")
+        chk.check(Xnew, "N D", "Xnew")
+        Kmm = self.kuu()
+        Kmn = self.kernel.K(self.Z.value, Xnew)
+        Knn = self.kernel(Xnew, full_cov=False)
+        fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
+                                       q_sqrt=self.q_sqrt.value, white=True)
+        return fmean, expand_independent_outputs(fvar, False, full_output_cov)

@@ -1,0 +1,77 @@
+"""Constrained parameters as ``nn.Module``s.
+
+Mirrors modulatedgps_tpu/params.py: a parameter stores an unconstrained
+``raw`` tensor (an ``nn.Parameter``) and a transform name; ``value`` applies
+the transform.  Transforms: ``identity``, ``positive`` (softplus, with the
+stable inverse y + log(-expm1(-y))) and ``tril`` (lower triangle).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+__all__ = ["Parameter", "positive", "positive_inverse", "TRANSFORMS"]
+
+_SOFTPLUS_CUTOFF = 20.0
+
+
+def positive(raw: torch.Tensor) -> torch.Tensor:
+    """softplus(raw) = log(1 + exp(raw)), as jax.nn.softplus (no cutoff)."""
+    return torch.logaddexp(raw, torch.zeros_like(raw))
+
+
+def positive_inverse(value: torch.Tensor) -> torch.Tensor:
+    """Numerically stable softplus inverse: y + log(-expm1(-y))."""
+    big = value > _SOFTPLUS_CUTOFF
+    safe = torch.where(big, torch.ones_like(value), value)
+    return torch.where(big, value, safe + torch.log(-torch.expm1(-safe)))
+
+
+_FORWARD: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "identity": lambda x: x,
+    "positive": positive,
+    "tril": torch.tril,
+}
+
+_INVERSE: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "identity": lambda x: x,
+    "positive": positive_inverse,
+    "tril": torch.tril,
+}
+
+TRANSFORMS = tuple(_FORWARD)
+
+
+class Parameter(nn.Module):
+    """An unconstrained ``raw`` tensor with a transform; ``value`` is the
+    constrained tensor.  ``trainable`` sets ``raw.requires_grad``."""
+
+    def __init__(self, raw: torch.Tensor, transform: str = "identity",
+                 trainable: bool = True):
+        super().__init__()
+        if transform not in _FORWARD:
+            raise ValueError(f"unknown transform {transform!r}; have {TRANSFORMS}")
+        self.transform = transform
+        self.raw = nn.Parameter(torch.as_tensor(raw), requires_grad=trainable)
+
+    @classmethod
+    def from_value(cls, value, transform: str = "identity",
+                   trainable: bool = True, *, dtype: torch.dtype,
+                   device: torch.device | str) -> "Parameter":
+        """Store the transform's inverse of ``value``."""
+        value = torch.as_tensor(value, dtype=dtype, device=device)
+        return cls(_INVERSE[transform](value), transform, trainable)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return _FORWARD[self.transform](self.raw)
+
+    @property
+    def trainable(self) -> bool:
+        return self.raw.requires_grad
+
+    def extra_repr(self) -> str:
+        return (f"shape={tuple(self.raw.shape)}, transform={self.transform!r}, "
+                f"trainable={self.trainable}")

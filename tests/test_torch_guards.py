@@ -1,0 +1,176 @@
+"""Guards of modulatedgps_tpu_torch that need no card.
+
+The port never imports jax, importing it builds nothing, CPU tensors never
+launch a kernel, and each CUDA wrapper's own argument checks refuse what
+its kernel does not take (a tensor that requires grad: no backward kernel
+yet; a wrong dtype).  Also the constrained-parameter transforms, the jitter
+policy and the shape checker against the JAX package.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modulatedgps_tpu import config as jconfig
+from modulatedgps_tpu import params as jparams
+from modulatedgps_tpu.utils import shapes as jshapes
+
+import modulatedgps_tpu_torch as pt
+from modulatedgps_tpu_torch import _native, config, params
+from modulatedgps_tpu_torch.ops import kxz_kernel, tril_kernel, trsm_kernel
+from modulatedgps_tpu_torch.utils.shapes import ShapeChecker, ShapeError
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any 'import jax' now raises ImportError
+import modulatedgps_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
+               for m, v in sys.modules.items() if v is not None)
+assert pkg._native._lib is None    # importing builds and loads nothing
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+def test_cpu_tensors_launch_nothing():
+    pt.reset_launch_counts()
+    X = torch.randn(20, 3)
+    Z = torch.randn(10, 3)
+    K = kxz_kernel.kxz(X, Z, torch.tensor(0.5), torch.tensor(1.0))
+    trsm_kernel.trsm_lower(torch.linalg.cholesky(K[:10] @ K[:10].T
+                                                 + torch.eye(10)))
+    tril_kernel.atl_sq_colsum(torch.randn(10, 7), torch.randn(2, 10, 10))
+    assert pt.launch_counts() == {"kxz": 0, "trsm_lower": 0, "tril_sq_fwd": 0}
+    assert _native._lib is None
+
+
+@pytest.mark.parametrize("case", ["kxz", "trsm_lower", "tril_sq_fwd"])
+def test_cuda_argument_checks_refuse_grad(case):
+    with pytest.raises(NotImplementedError, match="training slice"):
+        if case == "kxz":
+            kxz_kernel.check_launch_args(
+                torch.zeros(4, 2, requires_grad=True), torch.zeros(3, 2),
+                torch.tensor(1.0), torch.tensor(1.0))
+        elif case == "trsm_lower":
+            trsm_kernel.check_launch_args(torch.eye(4, requires_grad=True))
+        else:
+            tril_kernel.check_launch_args(
+                torch.zeros(4, 3, dtype=torch.bfloat16, requires_grad=True),
+                torch.zeros(1, 4, 4, dtype=torch.bfloat16))
+
+
+def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
+    """Serving runs under inference_mode: parameters that require grad feed
+    the kernels there, because no backward will be asked for."""
+    X = torch.zeros(4, 2, requires_grad=True)
+    for ctx in (torch.inference_mode, torch.no_grad):
+        with ctx():
+            kxz_kernel.check_launch_args(X, X, torch.tensor(1.0),
+                                         torch.tensor(1.0))
+            trsm_kernel.check_launch_args(torch.eye(4, requires_grad=True))
+
+
+@pytest.mark.parametrize("case", ["kxz", "kxz_variance", "trsm_lower",
+                                  "trsm_rhs", "tril_sq_fwd"])
+def test_cuda_argument_checks_refuse_dtype(case):
+    f64 = torch.float64
+    with pytest.raises(TypeError):
+        if case == "kxz":
+            kxz_kernel.check_launch_args(torch.zeros(4, 2, dtype=f64),
+                                         torch.zeros(3, 2, dtype=f64),
+                                         torch.tensor(1.0), torch.tensor(1.0))
+        elif case == "kxz_variance":
+            kxz_kernel.check_launch_args(torch.zeros(4, 2), torch.zeros(3, 2),
+                                         torch.tensor(1.0),
+                                         torch.tensor(1.0, dtype=f64))
+        elif case == "trsm_lower":
+            trsm_kernel.check_launch_args(torch.eye(4, dtype=f64))
+        elif case == "trsm_rhs":
+            trsm_kernel.check_launch_args(torch.eye(4), torch.eye(4, dtype=f64))
+        else:   # the tril kernel takes bf16, cast by atl_sq_colsum
+            tril_kernel.check_launch_args(torch.zeros(4, 3),
+                                          torch.zeros(1, 4, 4))
+
+
+def test_cuda_argument_checks_refuse_layout_and_shape():
+    with pytest.raises(ValueError, match="contiguous"):
+        trsm_kernel.check_launch_args(torch.eye(4).T.contiguous()[:, ::2].T)
+    with pytest.raises(ValueError, match="lengthscales"):
+        kxz_kernel.check_launch_args(torch.zeros(4, 2), torch.zeros(3, 2),
+                                     torch.ones(3), torch.tensor(1.0))
+    ls, var = kxz_kernel.check_launch_args(torch.zeros(4, 2), torch.zeros(3, 2),
+                                           torch.tensor(0.5), torch.tensor(2.0))
+    assert ls.tolist() == [0.5, 0.5] and var.tolist() == [2.0]
+
+
+def test_serving_refuses_grad_path_only_on_cuda():
+    """On CPU the plain versions are differentiable; the CUDA refusal is
+    the wrappers' own check (above), so CPU autograd still works."""
+    X = torch.randn(5, 2, requires_grad=True)
+    K = kxz_kernel.kxz(X, X, torch.tensor(0.5), torch.tensor(1.0))
+    K.sum().backward()
+    assert X.grad is not None
+
+
+@pytest.mark.parametrize("values", [[1e-6, 0.3, 2.0, 19.9, 20.1, 50.0]])
+def test_positive_transform_matches_jax(values):
+    v = np.asarray(values)
+    want = np.asarray(jparams.positive_inverse(jnp.asarray(v)))
+    got = params.positive_inverse(torch.as_tensor(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    np.testing.assert_allclose(params.positive(torch.tensor(want)).numpy(),
+                               np.asarray(jparams.positive(jnp.asarray(want))),
+                               rtol=1e-12)
+
+
+def test_parameter_round_trip_and_tril():
+    p = params.Parameter.from_value([[0.5, 2.0]], "positive",
+                                    dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(p.value.detach().numpy(), [[0.5, 2.0]],
+                               rtol=1e-12)
+    t = params.Parameter(torch.ones(2, 3, 3), "tril", trainable=False)
+    assert not t.trainable
+    assert torch.equal(t.value, torch.tril(torch.ones(2, 3, 3)))
+    with pytest.raises(ValueError):
+        params.Parameter(torch.ones(2), "exp")
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float64, jnp.float64),
+                                          (torch.float32, jnp.float32)])
+def test_default_jitter_matches_jax(dtype, jdtype):
+    assert config.default_jitter(dtype) == jconfig.default_jitter(jdtype)
+
+
+def test_shape_checker_matches_jax():
+    for chk_cls, err in ((ShapeChecker, ShapeError),
+                         (jshapes.ShapeChecker, jshapes.ShapeError)):
+        chk = chk_cls()
+        chk.check(np.zeros((5, 2)), "N D", "X")
+        with pytest.raises(err, match="conflicts"):
+            chk.check(np.zeros((4, 1)), "N 1", "Y")
+        with pytest.raises(err, match="rank"):
+            chk.check(np.zeros(3), "N D", "Z")
+
+
+def test_svgp_predict_f_checks_shapes():
+    kern = pt.SquaredExponential.create(dtype=torch.float64)
+    layer = pt.SVGP.create(kern, np.zeros((4, 2)), 2, dtype=torch.float64)
+    with pytest.raises(ShapeError):
+        layer.predict_f(torch.zeros(5, 3, dtype=torch.float64))
