@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's SMGP serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's SMGP serving path and train step once on
+one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
      kernels in modulatedgps_tpu_torch/csrc;
-  2. each CUDA kernel against its plain PyTorch version on the card, at a
-     small ragged shape and at its main-path shape, with CUDA-event medians;
+  2. each CUDA kernel against its plain PyTorch version on the card, at
+     small ragged shapes and at its main-path shape, with CUDA-event
+     medians of the kernel, the plain version and, where one exists, one
+     PyTorch call computing the same function, beside the kernel's bound;
   3. the north-star SMGP (M=4096, K=8, D=4, f32) at a seeded, perturbed
      state: 4 request batches of 8192 through precompute_smgp ->
      predict_y / predict_assign / predict_density and 2 through the
-     training-path predict_y, with every kernel's launch count > 0;
+     training-path predict_y, with each serving kernel's launch count > 0;
   4. the same model at M=1024, batch 2048 on the card against the port's
-     plain path in float64 on the CPU.
-The line before the last is a JSON object with the kernels' launches,
-errors and times; the last is {"ok": true, "device": {...}}.  Any failure
-exits non-zero without that last line.  Without CUDA it exits non-zero
-before doing anything.
+     plain path in float64 on the CPU;
+  5. the train step at the north-star width (S=16, batch 8192, lr 5e-3,
+     Adam): 6 steps with every kernel's launch count > 0, finite losses,
+     q_sqrt and its Adam moments exactly 0 above the diagonal, ms per step,
+     peak memory and a torch.profiler breakdown of one more step;
+  6. the loss and the gradient of every raw leaf at M=1024, batch 2048 on
+     the card against the port's f64 CPU path, with the same noise, at the
+     north-star temperature 1e-2 and at 1.
+The line before the last is a JSON object with the kernels' launches (in
+the train phase), errors, times and bounds; the last is {"ok": true,
+"device": {...}}.  Any failure exits non-zero without that last line.
+Without CUDA it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
@@ -39,12 +49,25 @@ KERNEL_SOURCES = {
                    "modulatedgps_tpu/ops/pallas_linalg.py:313"),
     "tril_sq_fwd": ("modulatedgps_tpu_torch/csrc/tril_fwd.cu",
                     "modulatedgps_tpu/ops/pallas_tril.py:402"),
+    "tril_sq_dl": ("modulatedgps_tpu_torch/csrc/tril_bwd.cu",
+                   "modulatedgps_tpu/ops/pallas_tril.py:455"),
+    "tril_sq_da": ("modulatedgps_tpu_torch/csrc/tril_bwd.cu",
+                   "modulatedgps_tpu/ops/pallas_tril.py:505"),
+    "tri_tt_matmul": ("modulatedgps_tpu_torch/csrc/trimm.cu",
+                      "modulatedgps_tpu/ops/pallas_trimm.py:125"),
+    "tri_nt_matmul": ("modulatedgps_tpu_torch/csrc/trimm.cu",
+                      "modulatedgps_tpu/ops/pallas_trimm.py:182"),
 }
+SERVING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd")
 M_FULL, K_EXPERTS, D_IN, BATCH = 4096, 8, 4, 8192
 M_REF, BATCH_REF = 1024, 2048
+NUM_SAMPLES, NUM_DATA, LR, TRAIN_STEPS = 16, 1_000_000, 5e-3, 6
 # (variance, lengthscale) of the north-star layers (bench.py:94-99).
 PRED_SE, ASSIGN_SE = (0.5, 0.5), (0.1, 1.0)
 LIK_VARIANCE = 0.5
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
 
 failures: list[str] = []
 
@@ -75,6 +98,15 @@ def cuda_ms(fns, reps):
             end.synchronize()
             times[i].append(start.elapsed_time(end))
     return [statistics.median(t) for t in times]
+
+
+def bound(nbytes, flops, kind):
+    """The least time the card could take: {"bound_ms", "bound_by"}."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
 def allclose_report(got, want, rtol, atol):
@@ -117,9 +149,9 @@ def smgp_arrays(M, seed=0):
     return arrays, rng
 
 
-def build_model(pt, arrays, device, dtype, jitter=None):
-    return pt.smgp_from_numpy(arrays, K=K_EXPERTS, num_samples=16,
-                              num_data=1_000_000, temperature=1e-2,
+def build_model(pt, arrays, device, dtype, jitter=None, temperature=1e-2):
+    return pt.smgp_from_numpy(arrays, K=K_EXPERTS, num_samples=NUM_SAMPLES,
+                              num_data=NUM_DATA, temperature=temperature,
                               device=device, dtype=dtype, jitter=jitter)
 
 
@@ -141,8 +173,9 @@ def phase_device_and_build(native):
             log(f"  ptxas: {line.strip()}")
 
 
-def phase_kernels(pt):
-    from modulatedgps_tpu_torch.ops import kxz_kernel, tril_kernel, trsm_kernel
+def phase_kernels():
+    from modulatedgps_tpu_torch.ops import (kxz_kernel, tril_kernel, trimm_kernel,
+                                            trsm_kernel)
     from modulatedgps_tpu_torch.ops.linalg import cholesky
     log("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
@@ -170,7 +203,12 @@ def phase_kernels(pt):
                  lambda: kxz_kernel.kxz_plain(Z, X, ls_t, var_t, kind=kind)], 20)
             log(f"  kxz [{M},{D}]x[{N},{D}]: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
-            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # One fp32 pass per output: the D-term cross product, two norm
+            # adds, the clamp, the scale, the exp and the variance.
+            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(4 * (N * D + M * D + D + 1 + N * M),
+                            N * M * (2 * D + 5), "fp32"),
+                    "library_ms": None}
         return None
 
     kxz_case("ragged", 301, 37, 3, [0.5, 0.9, 1.4], 0.7, "rbf", False)
@@ -204,12 +242,19 @@ def phase_kernels(pt):
               f"residual kernel {res_k:.3e} vs plain {res_p:.3e} (<= 3x), "
               f"max_abs_err {err:.3e}, max|X| {float(want.abs().max()):.3e}")
         if record:
-            ms, plain_ms = cuda_ms(
+            eye = torch.eye(M, device=dev)
+            ms, plain_ms, lib_ms = cuda_ms(
                 [lambda: trsm_kernel.trsm_lower(L_noisy, B),
-                 lambda: trsm_kernel.trsm_lower_plain(L_noisy, B)], 10)
+                 lambda: trsm_kernel.trsm_lower_plain(L_noisy, B),
+                 lambda: torch.linalg.solve_triangular(L, eye, upper=False)],
+                10)
             log(f"  trsm_lower inverse M={M}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms")
-            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"{plain_ms:.4f} ms, solve_triangular {lib_ms:.4f} ms")
+            # The inverse of a triangular matrix: M^3 / 3 fp32 operations.
+            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(4 * (M * (M + 1) // 2 + M * M), M ** 3 / 3,
+                            "fp32"),
+                    "library_ms": lib_ms}
         return None
 
     trsm_case("ragged", 200, None, False)
@@ -235,19 +280,176 @@ def phase_kernels(pt):
               f"{err:.3e} ({bad} outside), extra max_abs_err {e_err:.3e} "
               f"({e_bad} outside)")
         if record:
-            ms, plain_ms = cuda_ms(
+            ms, plain_ms, lib_ms = cuda_ms(
                 [lambda: tril_kernel.tril_sq_fwd(A16, L16),
-                 lambda: tril_kernel.tril_sq_fwd_plain(A16, L16)], 5)
+                 lambda: tril_kernel.tril_sq_fwd_plain(A16, L16),
+                 lambda: torch.matmul(A16.T, L16)], 5)
             macs = K * N * (M * (M + 1) / 2)
             log(f"  tril_sq_fwd M={M} N={N} K={K}: kernel {ms:.4f} ms "
                 f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
-                f"{plain_ms:.4f} ms")
-            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(2 * (M * N + K * M * (M + 1) // 2 + K * N * M),
+                            2 * macs, "bf16"),
+                    "library_ms": lib_ms}
         return None
 
     tril_case("ragged", 200, 77, 3, False)
     tril_case("ragged", 136, 264, 2, False)
     rows["tril_sq_fwd"] = tril_case("main", M_FULL, BATCH, K_EXPERTS, True)
+
+    # --- tril_sq_dl / tril_sq_da: 1e-3 of the largest magnitude (rtol and
+    # atol) and dL exactly 0 above the diagonal.  The JAX suite's 3e-2
+    # (tests/test_pallas_tril.py) holds a bf16 kernel against an f32
+    # product; the plain versions here round W = bf16(B16 G) the same way
+    # and accumulate in fp32 too (both sat within 4e-5 of the maximum on an
+    # H100), so 3e-2 would pass a dropped tile of the m'-run.
+    def tril_bwd_case(label, M, N, K, record):
+        A = rand(M, N, scale=1 / math.sqrt(M))
+        L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M))  # upper garbage
+        A16, L16 = A.to(torch.bfloat16), L.to(torch.bfloat16)
+        B16 = tril_kernel.tril_sq_fwd_plain(A16, L16)
+        G = 2.0 * rand(K, N)
+        out = {}
+        for name, fn, plain, x16 in (
+                ("tril_sq_dl", tril_kernel.tril_sq_dl,
+                 tril_kernel.tril_sq_dl_plain, A16),
+                ("tril_sq_da", tril_kernel.tril_sq_da,
+                 tril_kernel.tril_sq_da_plain, L16)):
+            got = fn(x16, B16, G)
+            torch.cuda.synchronize()
+            want = plain(x16, B16, G)
+            scale = float(want.abs().max())
+            err, bad = allclose_report(got, want, 1e-3, 1e-3 * scale)
+            upper = upper_nonzero(got) if name == "tril_sq_dl" else 0
+            check(bad == 0 and upper == 0,
+                  f"{name} {label} M={M} N={N} K={K}: max_abs_err {err:.3e} "
+                  f"of max {scale:.3e} ({bad} outside rtol 1e-3, atol 1e-3 "
+                  f"max)" + (f", {upper} non-zero above the diagonal"
+                             if name == "tril_sq_dl" else ""))
+            out[name] = err
+        if not record:
+            return None
+        W16 = (B16.float() * G[:, :, None]).to(torch.bfloat16)
+        Lcat16 = torch.tril(L16).permute(1, 0, 2).reshape(M, K * M)
+        Wcat16 = W16.transpose(1, 2).reshape(K * M, N)
+        macs = K * N * (M * (M + 1) / 2)
+        res = {}
+        for name, fn, plain, lib, x16, nbytes in (
+                ("tril_sq_dl", tril_kernel.tril_sq_dl,
+                 tril_kernel.tril_sq_dl_plain, lambda: A16 @ W16, A16,
+                 2 * (M * N + K * N * M) + 4 * K * N + 4 * K * M * M),
+                ("tril_sq_da", tril_kernel.tril_sq_da,
+                 tril_kernel.tril_sq_da_plain, lambda: Lcat16 @ Wcat16, L16,
+                 2 * (K * M * (M + 1) // 2 + K * N * M) + 4 * K * N
+                 + 4 * M * N)):
+            ms, plain_ms, lib_ms = cuda_ms(
+                [lambda: fn(x16, B16, G), lambda: plain(x16, B16, G), lib], 5)
+            log(f"  {name} M={M} N={N} K={K}: kernel {ms:.4f} ms "
+                f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
+                f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+            res[name] = {"max_abs_err": out[name], "ms": ms,
+                         "plain_ms": plain_ms,
+                         **bound(nbytes, 2 * macs, "bf16"),
+                         "library_ms": lib_ms}
+        return res
+
+    tril_bwd_case("ragged", 200, 77, 3, False)
+    tril_bwd_case("ragged", 197, 333, 2, False)
+    rows.update(tril_bwd_case("main", M_FULL, BATCH, K_EXPERTS, True))
+
+    # --- tri_tt_matmul / tri_nt_matmul: 2e-3 of the largest magnitude, the
+    # pullback 5e-3 against the f64 dense oracle (tests/test_pallas_trimm.py).
+    # The split's lo part must carry the product: its error against f64 is
+    # held to 1/50 of one bf16 pass's on the same inputs.
+    def trimm_case(label, M, record):
+        L = spd_chol(M)
+        Linv = trsm_kernel.trsm_lower_plain(L)
+        Lbar = torch.tril(rand(M, M))
+        S = rand(M, M)
+        garbage = lambda X: (X + torch.triu(rand(M, M), 1)).contiguous()
+        Lg, Linvg, Lbarg = garbage(L), garbage(Linv), garbage(Lbar)
+        calls = {
+            "tri_tt_matmul": (lambda: trimm_kernel.tri_tt_matmul(
+                Linvg, Lbarg, tril_out=False), lambda: trimm_kernel.
+                tri_tt_matmul_plain(Linvg, Lbarg, tril_out=False),
+                Linv.double().T @ Lbar.double(),
+                Linv.T.bfloat16().double() @ Lbar.bfloat16().double()),
+            "tri_tt_matmul tril_out": (lambda: trimm_kernel.tri_tt_matmul(
+                Lg, Lbarg, tril_out=True), lambda: trimm_kernel.
+                tri_tt_matmul_plain(Lg, Lbarg, tril_out=True),
+                torch.tril(L.double().T @ Lbar.double()),
+                torch.tril(L.T.bfloat16().double() @ Lbar.bfloat16().double())),
+            "tri_nt_matmul": (lambda: trimm_kernel.tri_nt_matmul(S, Linvg),
+                              lambda: trimm_kernel.tri_nt_matmul_plain(S, Linvg),
+                              S.double() @ Linv.double(),
+                              S.bfloat16().double() @ Linv.bfloat16().double()),
+        }
+        errs = {}
+        for name, (fn, plain, exact, one_pass) in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            want = plain()
+            scale = float(want.abs().max())
+            err, bad = allclose_report(got, want, 2e-3, 2e-3 * scale)
+            err64 = float((got.double() - exact).abs().max())
+            err1 = float((one_pass - exact).abs().max())
+            upper = upper_nonzero(got) if "tril_out" in name else 0
+            check(bad == 0 and upper == 0 and err64 < err1 / 50,
+                  f"{name} {label} M={M}: max_abs_err {err:.3e} of max "
+                  f"{scale:.3e} vs plain (2e-3); vs f64 {err64:.3e}, one bf16 "
+                  f"pass {err1:.3e} (need < 1/50)"
+                  + (f"; {upper} non-zero above the diagonal"
+                     if "tril_out" in name else ""))
+            errs[name] = err
+        got = trimm_kernel.chol_pullback_structured(Lg, Linvg, Lbarg)
+        torch.cuda.synchronize()
+        want = trimm_kernel.chol_pullback_dense(L.double(), Linv.double(),
+                                                Lbar.double())
+        scale = float(want.abs().max())
+        err, bad = allclose_report(got, want, 5e-3, 5e-3 * scale)
+        check(bad == 0 and bool((got == got.T).all()),
+              f"chol_pullback_structured {label} M={M}: max_abs_err "
+              f"{err:.3e} of max {scale:.3e} vs f64 dense (5e-3), symmetric")
+        if not record:
+            return None
+        ms_tt, plain_tt, lib_tt, ms_tt1, ms_nt, plain_nt, lib_nt, ms_pb, \
+            dense_pb = cuda_ms([
+                calls["tri_tt_matmul"][0], calls["tri_tt_matmul"][1],
+                lambda: Linv.T @ Lbar, calls["tri_tt_matmul tril_out"][0],
+                calls["tri_nt_matmul"][0], calls["tri_nt_matmul"][1],
+                lambda: S @ Linv,
+                lambda: trimm_kernel.chol_pullback_structured(Lg, Linvg, Lbarg),
+                lambda: trimm_kernel.chol_pullback_dense(L, Linv, Lbar)], 5)
+        # Useful multiply-adds of the band, times 3 bf16 passes.
+        idx = torch.arange(M, dtype=torch.float64)
+        macs_tt = float(((2 * idx + 1) * (M - idx)).sum())
+        macs_tt1 = float(((idx + 1) * (M - idx)).sum())
+        macs_nt = M * M * (M + 1) / 2
+        log(f"  tri_tt_matmul M={M}: kernel {ms_tt:.4f} ms "
+            f"({2 * macs_tt / ms_tt / 1e9:.1f} TFLOP/s useful), tril_out "
+            f"{ms_tt1:.4f} ms ({2 * macs_tt1 / ms_tt1 / 1e9:.1f}), plain "
+            f"{plain_tt:.4f} ms, fp32 matmul {lib_tt:.4f} ms")
+        log(f"  tri_nt_matmul M={M}: kernel {ms_nt:.4f} ms "
+            f"({2 * macs_nt / ms_nt / 1e9:.1f} TFLOP/s useful), plain "
+            f"{plain_nt:.4f} ms, fp32 matmul {lib_nt:.4f} ms")
+        log(f"  chol pullback M={M}: structured {ms_pb:.4f} ms, dense fp32 "
+            f"{dense_pb:.4f} ms")
+        tri = 4 * M * (M + 1) // 2
+        return {"tri_tt_matmul": {
+                    "max_abs_err": errs["tri_tt_matmul"], "ms": ms_tt,
+                    "plain_ms": plain_tt,
+                    **bound(2 * tri + 4 * M * M, 6 * macs_tt, "bf16"),
+                    "library_ms": lib_tt},
+                "tri_nt_matmul": {
+                    "max_abs_err": errs["tri_nt_matmul"], "ms": ms_nt,
+                    "plain_ms": plain_nt,
+                    **bound(tri + 8 * M * M, 6 * macs_nt, "bf16"),
+                    "library_ms": lib_nt}}
+
+    trimm_case("ragged", 200, False)
+    trimm_case("ragged", 197, False)
+    rows.update(trimm_case("main", M_FULL, True))
     return rows
 
 
@@ -319,7 +521,8 @@ def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH):
                   f"routes agree, batch {i}: fmean max_abs_err {m_err:.3e} "
                   f"(rtol 1e-3, atol 1e-3 max), var max_abs_err {v_err:.3e} "
                   f"(rtol 2e-2: bf16 B)")
-        counts = pt.launch_counts()
+        counts = {name: n for name, n in pt.launch_counts().items()
+                  if name in SERVING_KERNELS}
     log(f"launches in the serving run: {counts}")
     for name, n in counts.items():
         check(n > 0, f"{name} launched {n} times on the main path")
@@ -379,6 +582,158 @@ def phase_reference(pt):
     compare_to_reference("card f32 vs cpu f64", got, ref)
 
 
+def upper_nonzero(t):
+    return int(torch.triu(t, 1).count_nonzero())
+
+
+# Kernel-name substrings -> op family, for the device-time breakdown.
+FAMILIES = (("tril_fwd_kernel", "tril forward (#3)"),
+            ("tril_dl_kernel", "tril dL (#8)"), ("tril_da_kernel", "tril dA (#9)"),
+            ("tri_tt_kernel", "pullback tt (#10)"),
+            ("tri_nt_kernel", "pullback nt (#11)"),
+            ("kxz_kernel", "kxz (#1)"), ("solve_kernel", "trsm (#2)"),
+            ("diag_inv_kernel", "trsm (#2)"), ("gemm", "fp32 matmul (cuBLAS)"),
+            ("getrf", "cholesky (cuSOLVER)"), ("potrf", "cholesky (cuSOLVER)"),
+            ("triu_tril", "tril / triu masks"), ("reduce", "reductions"))
+
+
+def profile_step(step, model, gen, X, Y, top=12):
+    """torch.profiler over one train step: device ms by op family and by
+    kernel (kernel-level events only, so nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(model, gen, X, Y)
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    families: dict[str, float] = {}
+    for ms, _, key in rows:
+        fam = next((f for sub, f in FAMILIES if sub in key),
+                   "elementwise and other")
+        families[fam] = families.get(fam, 0.0) + ms
+    log(f"profiled step: {total:.3f} ms of kernel time; by family (ms, share):")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:9.3f} {ms / total:6.1%}  {fam}")
+    log("largest kernels (self device ms, calls, name):")
+    for ms, count, key in rows[:top]:
+        log(f"  {ms:9.3f} {count:5d}  {key[:100]}")
+
+
+def phase_train(pt, dev="cuda", M=M_FULL, batch=BATCH, steps=TRAIN_STEPS):
+    log(f"== phase 5: train step M={M} K={K_EXPERTS} S={NUM_SAMPLES} "
+        f"D={D_IN} batch={batch} f32, Adam lr {LR}")
+    arrays, rng = smgp_arrays(M)
+    model = build_model(pt, arrays, dev, torch.float32)
+    X = torch.as_tensor(rng.uniform(-3, 3, size=(batch, D_IN)),
+                        dtype=torch.float32, device=dev)
+    Y = torch.as_tensor(rng.normal(size=(batch, 1)), dtype=torch.float32,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    opt = pt.Adam(model.parameters(), LR)
+    step = pt.make_train_step(opt)
+    on_card = torch.device(dev).type == "cuda"
+    sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    pt.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(model, gen, X, Y)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = pt.launch_counts()
+    log(f"launches in the train run ({steps} steps): {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"{name} launched {n} times on the train path")
+    check(all(math.isfinite(x) for x in losses),
+          f"loss finite at every step: {[round(x, 6) for x in losses]}")
+    names = {id(p): name for name, p in model.named_parameters()}
+    for p, m, v in zip(opt.params, opt.m, opt.v):
+        name = names[id(p)]
+        if name.endswith("q_sqrt.raw"):
+            nz = [upper_nonzero(t) for t in (p, m, v)]
+            check(nz == [0, 0, 0], f"{name}, its m and v: {nz} non-zero "
+                  f"entries above the diagonal after {steps} steps")
+    log(f"train step ms (host clock to synchronize), steps 2-{steps}: "
+        f"{[round(t, 3) for t in step_ms[1:]]}; median "
+        f"{statistics.median(step_ms[1:]):.3f} (step 1: {step_ms[0]:.3f})")
+    if on_card:
+        log(f"peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_step(step, model, gen, X, Y)
+    return counts
+
+
+# Loss and raw-leaf gradients of the f32 card against the port's f64 CPU
+# path, M=1024, batch 2048, jitter 1e-4 and the same (z, g), at two
+# temperatures.  Each entry: leaf -> tolerance on max|got - want| /
+# max|want|, about 4-6x the port's own f32 CPU path's distance from f64.
+# At the north-star tau = 1e-2 the assignment weights are one-hot to f32
+# rounding and f32 swamps the assignment layer's gradients: the f32 CPU
+# path is 0.29 off f64 on its kernel variance and 0.26 on its q_sqrt.
+# Those leaves are printed there, not checked, and checked at tau = 1,
+# where the f32 CPU path is 6.4e-4 (kernel variance), 2.8e-3
+# (lengthscales), 3.1e-3 (Z), 2.5e-3 (q_mu) and 3.5e-3 (q_sqrt) off f64.
+# There, scaling the output of any one of kernels #8-#11 by 1.03 moves a
+# gradient past its tolerance (tests/test_torch_grad_tolerance.py).
+GRAD_TOL = {"loss": 1e-4,
+            "likelihood.variance.raw": 1e-3,
+            "pred_layer.kernel.variance.raw": 3e-4,
+            "pred_layer.kernel.lengthscales.raw": 1e-3,
+            "pred_layer.Z.raw": 2e-2,
+            "pred_layer.q_mu.raw": 5e-2,
+            "pred_layer.q_sqrt.raw": 3e-2,
+            "assign_layer.kernel.variance.raw": 3e-3,
+            "assign_layer.kernel.lengthscales.raw": 1e-2,
+            "assign_layer.Z.raw": 1.5e-2,
+            "assign_layer.q_mu.raw": 1e-2,
+            "assign_layer.q_sqrt.raw": 1.5e-2}
+GRAD_TEMPERATURES = (1e-2, 1.0)
+
+
+def loss_and_grads(pt, arrays, X, Y, z, g, device, dtype, temperature):
+    model = build_model(pt, arrays, device, dtype, jitter=1e-4,
+                        temperature=temperature)
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    kl = model.pred_layer.prior_kl() + model.assign_layer.prior_kl()
+    loss = -(model.E_log_p_Y_from_noise(to(X), to(Y), to(z), to(g)).mean()
+             - kl / model.num_data)
+    loss.backward()
+    out = {name: p.grad.double().cpu() for name, p in model.named_parameters()}
+    out["loss"] = loss.detach().double().cpu()
+    return out
+
+
+def phase_grad_reference(pt, dev="cuda"):
+    log(f"== phase 6: loss and gradients, card f32 vs CPU f64, M={M_REF} "
+        f"batch={BATCH_REF} S={NUM_SAMPLES}")
+    arrays, rng = smgp_arrays(M_REF)
+    X = rng.uniform(-3, 3, size=(BATCH_REF, D_IN))
+    Y = rng.normal(size=(BATCH_REF, 1))
+    z = rng.normal(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
+    g = rng.gumbel(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
+    for tau in GRAD_TEMPERATURES:
+        log(f"  temperature {tau:g}")
+        got = loss_and_grads(pt, arrays, X, Y, z, g, dev, torch.float32, tau)
+        want = loss_and_grads(pt, arrays, X, Y, z, g, "cpu", torch.float64,
+                              tau)
+        for name, tol in GRAD_TOL.items():
+            rel = float((got[name] - want[name]).abs().max()
+                        / want[name].abs().max())
+            what = f"{name}: max|err| / max|f64| {rel:.3e}"
+            if tau < 1.0 and name.startswith("assign_layer."):
+                log(f"  [--] {what}, not checked at this temperature")
+            else:
+                check(rel <= tol and bool(torch.isfinite(got[name]).all()),
+                      f"{what} (tolerance {tol:g})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -389,9 +744,11 @@ def main() -> int:
     from modulatedgps_tpu_torch import _native
 
     phase_device_and_build(_native)
-    rows = phase_kernels(pt)
-    counts = phase_slice(pt)
+    rows = phase_kernels()
+    phase_slice(pt)
     phase_reference(pt)
+    counts = phase_train(pt)
+    phase_grad_reference(pt)
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name], **rows[name]}

@@ -1,10 +1,12 @@
-"""PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving slice.
+"""PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving path and
+its Adam train step.
 
 The JAX package beside this one is the reference each ported part is held
-against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on the
-serving path are CUDA kernels for Hopper (csrc/), built with nvcc on first
-use.  On CPU tensors each kernel wrapper runs its plain PyTorch version; on
-CUDA tensors it launches the kernel or raises.
+against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on these
+paths are CUDA kernels for Hopper (csrc/), built with nvcc on first use.
+On CPU tensors each kernel wrapper runs its plain PyTorch version; on CUDA
+tensors it launches the kernel or raises.  Models are created on the card
+unless the caller passes ``device="cpu"``.
 
 TF32 is switched off for every float32 matmul and convolution: the products
 that feed the Cholesky (Kmm, Linv @ Kmn, the posterior sandwich) ran at
@@ -16,12 +18,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import smgp_from_numpy  # noqa: E402
+from .convert import smgp_from_numpy, smgp_to_numpy  # noqa: E402
 from .likelihoods import Gaussian  # noqa: E402
 from .models import SGP, SMGP, SVGP, precompute_posterior, precompute_smgp  # noqa: E402
 from .ops import launch_counts, reset_launch_counts  # noqa: E402
 from .ops.kernels import Matern32, SquaredExponential  # noqa: E402
+from .training import Adam, make_train_step, run_adam  # noqa: E402
 
-__all__ = ["Gaussian", "SGP", "SMGP", "SVGP", "Matern32", "SquaredExponential",
-           "launch_counts", "precompute_posterior", "precompute_smgp",
-           "reset_launch_counts", "smgp_from_numpy"]
+__all__ = ["Adam", "Gaussian", "SGP", "SMGP", "SVGP", "Matern32",
+           "SquaredExponential", "launch_counts", "make_train_step",
+           "precompute_posterior", "precompute_smgp", "reset_launch_counts",
+           "run_adam", "smgp_from_numpy", "smgp_to_numpy"]

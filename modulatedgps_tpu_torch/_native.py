@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-happens on first use, never at import, into ``_build/`` beside this file,
-under a name keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads the cached library.  A failed build
-raises with the compiler's output; there is no fallback.
+The sources are compiled by ``nvcc`` for ``sm_90a`` (Hopper), one process
+per source started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build happens on first use,
+never at import, into ``_build/`` beside this file, under a name keyed by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached library.  A failed build raises with the
+compiler's output; there is no fallback.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,10 @@ _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mgp_tri_tt": (_P, _P, _P, _I, _I, _P),
+    "mgp_tri_nt": (_P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -65,15 +70,32 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{stem}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs = []                       # (source, compiler output, exit code)
+    for src, p in zip(sources, procs):
+        output, _ = p.communicate()
+        logs.append((src.name, output, p.returncode))
+    tmp = _BUILD / f"{stem}.tmp.so"
+    link = None
+    if all(rc == 0 for *_, rc in logs):
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    text = "".join(f"== {name}\n{output}" for name, output, _ in logs)
+    if link is not None:
+        text += f"== link\n{link.stdout}{link.stderr}"
+    out.with_suffix(".log").write_text(text)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [name for name, _, rc in logs if rc != 0]
+    if failed or link.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({failed or 'link'}):\n{text}")
     os.replace(tmp, out)
     return out, seconds
 
@@ -107,15 +129,18 @@ def stream_ptr(device) -> int:
 def require(what: str, t, dtype, device) -> None:
     """Argument checks shared by the CUDA wrappers; no card is needed.
 
-    A tensor that requires grad is refused only while autograd records
-    (grad mode on): the kernels have no backward yet.  Under
-    torch.inference_mode() or torch.no_grad() nothing is recorded, so a
-    trainable parameter may feed them."""
+    A tensor that requires grad is refused while autograd records (grad
+    mode on): a raw launcher records no gradient, so a caller that wants
+    one goes through the autograd Function around it (``kxz``,
+    ``atl_sq_colsum``, ``whiten_solve``), whose forward and backward launch
+    with grad mode off.  Under torch.inference_mode() or torch.no_grad()
+    nothing is recorded, so a trainable parameter may feed them."""
     import torch
     if t.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward yet; gradients land "
-            "with the training slice (serve under torch.inference_mode())")
+            f"{what}: the raw CUDA launcher records no gradient; call it "
+            "through its autograd Function (kxz, atl_sq_colsum, "
+            "whiten_solve) or under torch.no_grad()")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.device != device:

@@ -1,12 +1,12 @@
-"""Carry a JAX SMGP's parameters into the port.
+"""Carry an SMGP's parameters between the JAX package and the port.
 
 ``smgp_from_numpy`` takes the JAX model's raw (unconstrained) leaves as
 numpy arrays keyed by their pytree path, for example
-``pred_layer.q_sqrt.raw``, and returns the port's SMGP.  The dict is what
-``jax.tree_util.tree_flatten_with_path`` gives for a
-``modulatedgps_tpu.models.SMGP`` with a Gaussian likelihood and two
-whitened SquaredExponential SVGP layers (the kernel type is not among
-the leaves); this module itself never imports jax.
+``pred_layer.q_sqrt.raw``, and returns the port's SMGP; ``smgp_to_numpy``
+is its inverse.  The dict is what ``jax.tree_util.tree_flatten_with_path``
+gives for a ``modulatedgps_tpu.models.SMGP`` with a Gaussian likelihood
+and two whitened SquaredExponential SVGP layers (the kernel type is not
+among the leaves); this module itself never imports jax.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from .models.svgp import SVGP
 from .ops.kernels import SquaredExponential
 from .params import Parameter
 
-__all__ = ["smgp_from_numpy"]
+__all__ = ["smgp_from_numpy", "smgp_to_numpy"]
 
 
 def _layer(raw, prefix: str, jitter, dtype, device) -> SVGP:
@@ -57,3 +57,12 @@ def smgp_from_numpy(arrays: Mapping[str, np.ndarray], *, K: int,
     assign = _layer(raw, "assign_layer", jitter, dtype, device)
     return SMGP(lik, pred, assign, K=K, num_samples=num_samples,
                 num_data=num_data, temperature=temperature)
+
+
+def smgp_to_numpy(model: SMGP) -> dict[str, np.ndarray]:
+    """The port's SMGP as raw leaves keyed by the JAX pytree paths (the
+    keys ``smgp_from_numpy`` reads), as numpy arrays on the host.  The
+    port's module tree mirrors the JAX pytree, so its parameter names are
+    those paths."""
+    return {name: p.detach().cpu().numpy()
+            for name, p in model.named_parameters()}

@@ -22,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include "tiles.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -40,27 +42,8 @@ constexpr int CHUNKS = BK * BN / 8 / NTHR;   // 16-byte chunks per thread per ti
 
 static_assert(BN == BP, "the A and L tiles share one chunk layout");
 
-// Eight bf16 values as raw bits (bf16 zero is all-zero bits).
-union Pack8 {
-  uint4 u;
-  unsigned short s[8];
-};
-
-__device__ __forceinline__ uint4 load_row8(const __nv_bfloat16* __restrict__ base,
-                                           int row, int rows, int col, int cols,
-                                           bool vec_ok) {
-  Pack8 p;
-  if (row < rows && vec_ok && col + 8 <= cols) {
-    p.u = *reinterpret_cast<const uint4*>(base + (size_t)row * cols + col);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      p.s[e] = (row < rows && col + e < cols)
-                   ? __bfloat16_as_ushort(base[(size_t)row * cols + col + e])
-                   : 0;
-  }
-  return p.u;
-}
+using mgp::Pack8;
+using mgp::load_row8;
 
 __global__ void __launch_bounds__(NTHR)
 tril_fwd_kernel(const __nv_bfloat16* __restrict__ A,

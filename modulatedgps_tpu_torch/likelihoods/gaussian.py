@@ -25,7 +25,7 @@ class Gaussian(Likelihood):
     @classmethod
     def create(cls, variance=1.0, D: int | None = None, *,
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu") -> "Gaussian":
+               device: torch.device | str = "cuda") -> "Gaussian":
         v = torch.as_tensor(variance, dtype=dtype, device=device)
         if D is not None:
             v = v * torch.ones((1, D), dtype=dtype, device=device)

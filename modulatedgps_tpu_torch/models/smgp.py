@@ -1,19 +1,34 @@
-"""Mixture of SVGPs with GP-modulated data association (SMGP): prediction.
+"""Mixture of SVGPs with GP-modulated data association (SMGP).
 
-Mirrors the prediction methods of modulatedgps_tpu/models/smgp.py.  K
-experts share the inputs; the prediction layer gives per-expert latents
-f_k and the assignment layer gives the logits of the mixture weights.  A
-layer is anything with ``predict_f(X) -> ([N, K], [N, K])``: a trained
-``SVGP`` (the training-path conditional) or a ``PrecomputedPosterior``
-(the cached serving path, see posterior.precompute_smgp).  Sampling and
-the ELBO wait for the training slice.
+Mirrors modulatedgps_tpu/models/smgp.py:74-169 (noise, the doubly
+stochastic ELBO) and its prediction methods.  K experts share the inputs;
+the prediction layer gives per-expert latents f_k and the assignment layer
+gives the logits of the mixture weights, drawn through a temperature-1e-2
+Gumbel-softmax to soft one-hot weights W [S, N, K].  The ELBO is
+
+    mean_n[ logsumexp_S( sum_k VE_k(n) W_snk ) - log S ]
+        - (KL_pred + KL_assign) / num_data,
+
+with each layer's conditional computed once on [N, D] and only the S
+Gaussian and Gumbel draws per sample.  A layer is anything with
+``predict_f(X) -> ([N, K], [N, K])``: a trained ``SVGP`` (the training-path
+conditional) or, for prediction only, a ``PrecomputedPosterior`` (see
+posterior.precompute_smgp).
+
+At tau = 1e-2 the exact gradient through non-dominant experts underflows
+float32 (weights below ~1e-38 flush to 0; JAX models/smgp.py:63-70): f32
+assignment-layer gradients differ from f64 ones there by design.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from ..likelihoods.base import Likelihood
+from ..ops.sampling import gumbel, reparameterize
+from ..utils.shapes import ShapeChecker
 
 __all__ = ["SGP", "SMGP"]
 
@@ -47,6 +62,59 @@ class SMGP(SGP):
         self.K = K
         self.temperature = temperature
 
+    # -- assignment weights ------------------------------------------------
+    def draw_noise(self, generator: torch.Generator, N: int, S: int,
+                   dtype: torch.dtype):
+        """(z, g): Gaussian and Gumbel noise, each [S, N, K], on the
+        generator's device."""
+        shape = (S, N, self.K)
+        z = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return z, gumbel(generator, shape, dtype)
+
+    def W_from_noise(self, Xnew, z, g):
+        """Gumbel-softmax assignment weights W [S, N, K] from given noise."""
+        amu, avar = self.assign_layer.predict_f(Xnew)
+        return self._W_from_marginals(amu, avar, z, g)
+
+    def _W_from_marginals(self, amu, avar, z, g):
+        log_assign = reparameterize(amu, avar, z)                # [S, N, K]
+        return torch.softmax((log_assign + g) / self.temperature, dim=-1)
+
+    # -- ELBO --------------------------------------------------------------
+    def E_log_p_Y(self, generator: torch.Generator, X, Y):
+        z, g = self.draw_noise(generator, X.shape[0], self.num_samples, X.dtype)
+        return self.E_log_p_Y_from_noise(X, Y, z, g)
+
+    def E_log_p_Y_from_noise(self, X, Y, z, g):
+        """Data-fit term per point [N] from given noise z, g [S, N, K]."""
+        fmu, fvar = self.pred_layer.predict_f(X)
+        amu, avar = self.assign_layer.predict_f(X)
+        return self.E_log_p_from_marginals(fmu, fvar, amu, avar, z, g, Y)
+
+    def E_log_p_from_marginals(self, fmu, fvar, amu, avar, z, g, Y):
+        """Data-fit term per point [N] from the layers' marginals."""
+        W = self._W_from_marginals(amu, avar, z, g)              # [S, N, K]
+        ve = self.likelihood.variational_expectations(fmu, fvar, Y)
+        summed = (ve[None] * W).sum(2)                           # [S, N]
+        return torch.logsumexp(summed, dim=0) - math.log(z.shape[0])
+
+    def elbo(self, generator: torch.Generator, X, Y) -> torch.Tensor:
+        if self.num_data is None:
+            raise ValueError(
+                "SMGP needs num_data (total training-set size) to scale the "
+                "KL term; pass num_data=N at construction.")
+        chk = ShapeChecker()
+        chk.check(X, "N D", "X")
+        chk.check(Y, "N .", "Y")
+        data_fit = self.E_log_p_Y(generator, X, Y).mean()
+        kl = self.pred_layer.prior_kl() + self.assign_layer.prior_kl()
+        return data_fit - kl / self.num_data
+
+    def training_loss(self, generator: torch.Generator, X, Y) -> torch.Tensor:
+        return -self.elbo(generator, X, Y)
+
+    # -- prediction --------------------------------------------------------
     def predict_assign(self, Xnew):
         """softmax of the mean assignment logits: [N, K]."""
         amu, _ = self.assign_layer.predict_f(Xnew)

@@ -1,9 +1,10 @@
 """Sparse variational GP layer (inducing points, whitened posterior).
 
-Mirrors modulatedgps_tpu/models/svgp.py for serving: ``create``, ``kuu``
-and the diagonal ``predict_f``.  Kmn is built as kernel.K(Z, Xnew) and
-Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu [M, K], q_sqrt tril
-[K, M, M] (init: K stacked identities) or diagonal [M, K].
+Mirrors modulatedgps_tpu/models/svgp.py for whitened layers: ``create``,
+``kuu``, the diagonal ``predict_f`` and ``prior_kl``.  Kmn is built as
+kernel.K(Z, Xnew) and Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu
+[M, K], q_sqrt tril [K, M, M] (init: K stacked identities) or diagonal
+[M, K].  ``create`` puts the state on the card unless given a device.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 from ..config import default_jitter
 from ..ops.conditionals import base_conditional, expand_independent_outputs
 from ..ops.kernels import Kernel
+from ..ops.kl import gauss_kl
 from ..params import Parameter
 from ..utils.shapes import ShapeChecker
 
@@ -41,7 +43,7 @@ class SVGP(nn.Module):
     def create(cls, kernel: Kernel, inducing_points, num_latent_gps: int = 1,
                *, q_diag: bool = False, jitter: float | None = None,
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu") -> "SVGP":
+               device: torch.device | str = "cuda") -> "SVGP":
         Z = torch.as_tensor(inducing_points, dtype=dtype, device=device)
         M, K = Z.shape[0], num_latent_gps
         q_mu = torch.zeros((M, K), dtype=dtype, device=device)
@@ -71,3 +73,7 @@ class SVGP(nn.Module):
         fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
                                        q_sqrt=self.q_sqrt.value, white=True)
         return fmean, expand_independent_outputs(fvar, False, full_output_cov)
+
+    def prior_kl(self) -> torch.Tensor:
+        """KL[q(u) || N(0, I)] (svgp.py:128-132 with whiten=True)."""
+        return gauss_kl(self.q_mu.value, self.q_sqrt.value)

@@ -1,12 +1,15 @@
-"""Kernels, linear algebra and the conditional of the serving slice."""
+"""Kernels, linear algebra, the conditional, sampling and the KL."""
 from .kxz_kernel import kxz
-from .tril_kernel import tril_sq_fwd
+from .tril_kernel import tril_sq_da, tril_sq_dl, tril_sq_fwd
+from .trimm_kernel import tri_nt_matmul, tri_tt_matmul
 from .trsm_kernel import trsm_lower
 
-__all__ = ["kxz", "trsm_lower", "tril_sq_fwd", "launch_counts",
+__all__ = ["kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
+           "tri_tt_matmul", "tri_nt_matmul", "launch_counts",
            "reset_launch_counts"]
 
-_WRAPPERS = (kxz, trsm_lower, tril_sq_fwd)
+_WRAPPERS = (kxz, trsm_lower, tril_sq_fwd, tril_sq_dl, tril_sq_da,
+             tri_tt_matmul, tri_nt_matmul)
 
 
 def launch_counts() -> dict[str, int]:

@@ -8,10 +8,11 @@ lower-triangular [K, M, M], diagonal [M, K] or absent q_sqrt:
     fmean = A^T q_mu                          [N, K]
     fvar  = Knn - sum_m A^2 + sum_m' (A^T tril q_sqrt_k)^2     [N, K]
 
-For a float32 tril q_sqrt the last term goes through the bf16 tril kernel
-(tril_kernel.atl_sq_colsum), the precision class of the TPU path; its bf16
-B puts ~0.4% relative error into that term, so fvar is clamped at 1e-12 as
-in JAX.  float64 (the CPU reference) forms B densely in float64.
+For a float32 tril q_sqrt the last term goes through the bf16 tril kernels
+(tril_kernel.atl_sq_colsum, forward and backward), the precision class of
+the TPU path; its bf16 B puts ~0.4% relative error into that term, so fvar
+is clamped at 1e-12 as in JAX.  float64 (the CPU reference) forms B densely
+in float64.  Gradients flow through both routes and through whiten_solve.
 """
 from __future__ import annotations
 

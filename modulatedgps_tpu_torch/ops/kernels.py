@@ -48,7 +48,7 @@ class _Stationary(Kernel):
     @classmethod
     def create(cls, variance=1.0, lengthscales=1.0, *,
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu"):
+               device: torch.device | str = "cuda"):
         return cls(
             Parameter.from_value(variance, "positive", dtype=dtype, device=device),
             Parameter.from_value(lengthscales, "positive", dtype=dtype,

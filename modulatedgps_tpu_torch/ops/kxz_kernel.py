@@ -9,6 +9,10 @@ with coalesced row stores.  The signal variance is folded into the epilogue.
 
 ``kxz`` takes the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  Every launch adds one to ``kxz.launches``.
+On the card ``kxz`` is an autograd Function: the forward launches the
+kernel, the backward is the gradient of the dense formula (``kxz_plain``
+recomputed in fp32, TF32 off), which is what JAX differentiates too
+(XLA autodiff of _rbf_xla / _matern32_xla, pallas_kernels.py:164-184).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 
 from .. import _native
 
-__all__ = ["kxz", "kxz_plain", "check_launch_args", "KINDS"]
+__all__ = ["kxz", "kxz_launch", "kxz_plain", "check_launch_args", "KINDS"]
 
 KINDS = {"rbf": 0, "matern32": 1}
 
@@ -65,6 +69,30 @@ def kxz(X, X2, lengthscales, variance, *, kind: str = "rbf"):
         return kxz_plain(X, X2, lengthscales, variance, kind=kind)
     if X.device.type != "cuda":
         raise ValueError(f"kxz: unsupported device {X.device}")
+    return _Kxz.apply(X, X2, lengthscales, variance, kind)
+
+
+class _Kxz(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, X, X2, lengthscales, variance, kind):
+        ctx.save_for_backward(X, X2, lengthscales, variance)
+        ctx.kind = kind
+        return kxz_launch(X, X2, lengthscales, variance, kind=kind)
+
+    @staticmethod
+    def backward(ctx, Kbar):
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            K = kxz_plain(*leaves, kind=ctx.kind)
+            grads = iter(torch.autograd.grad(
+                K, [t for t, n in zip(leaves, need) if n], Kbar))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def kxz_launch(X, X2, lengthscales, variance, *, kind: str = "rbf"):
+    """The raw launcher: X [N, D], X2 [M, D] fp32 on the card -> [N, M]."""
     ls, var = check_launch_args(X, X2, lengthscales, variance)
     N, D = X.shape
     M = X2.shape[0]

@@ -6,13 +6,16 @@ through ``trsm_kernel.trsm_lower`` (the CUDA kernel on the card, its plain
 version on the CPU) at every M, with no TPU routing threshold.  The
 whitened feature map A = chol(Kmm)^-1 Kmn is formed as Linv @ Kmn, the JAX
 package's fast-solves form: one substitution for the [M, M] inverse, then
-one large matmul.  Gradients (the fused whiten_solve pullback) land with
-the training slice.
+one large matmul.  ``whiten_solve`` is an autograd Function with the JAX
+package's composite pullback (linalg.py:246-330), which reuses the
+forward's Linv and closes with the banded Cholesky pullback
+(trimm_kernel.chol_pullback_structured).
 """
 from __future__ import annotations
 
 import torch
 
+from .trimm_kernel import chol_pullback_structured
 from .trsm_kernel import trsm_lower
 
 __all__ = ["cholesky", "add_jitter", "triangular_inverse", "solve_lower",
@@ -46,6 +49,34 @@ def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 def whiten_solve(Kmm: torch.Tensor, Kmn: torch.Tensor) -> torch.Tensor:
     """A = chol(Kmm)^-1 Kmn: Cholesky, kernel inverse, one matmul
-    (modulatedgps_tpu/ops/linalg.py:287-297)."""
-    Linv = triangular_inverse(cholesky(Kmm))
-    return Linv @ Kmn
+    (modulatedgps_tpu/ops/linalg.py:287-297), differentiable in both."""
+    return _WhitenSolve.apply(Kmm, Kmn)
+
+
+class _WhitenSolve(torch.autograd.Function):
+    """The solve pullback without differentiating the inverse:
+
+        Kmn_bar = Linv^T Abar
+        Lbar    = -tril(Kmn_bar A^T)
+        Kmm_bar = chol_pullback(L, Linv, Lbar)
+
+    The two [M, N] x [N, M]-class products stay plain fp32 matmuls, as JAX
+    leaves them to XLA; the M^3 products go through the banded kernels."""
+
+    @staticmethod
+    def forward(ctx, Kmm, Kmn):
+        L = cholesky(Kmm)
+        Linv = triangular_inverse(L)
+        A = Linv @ Kmn
+        ctx.save_for_backward(L, Linv, A)
+        return A
+
+    @staticmethod
+    def backward(ctx, Abar):
+        L, Linv, A = ctx.saved_tensors
+        Kmn_bar = Linv.T @ Abar
+        Kmm_bar = None
+        if ctx.needs_input_grad[0]:
+            Lbar = torch.tril(Kmn_bar @ A.T).neg_()
+            Kmm_bar = chol_pullback_structured(L, Linv, Lbar)
+        return Kmm_bar, Kmn_bar

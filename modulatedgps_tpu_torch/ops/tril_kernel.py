@@ -1,21 +1,24 @@
-"""The q_sqrt variance term sum_m' (A^T tril L_k)^2: the CUDA kernel for
-B16 = bf16(A^T tril L) and its plain version.
+"""The q_sqrt variance term sum_m' (A^T tril L_k)^2 and its gradient: the
+CUDA kernels for B16 = bf16(A^T tril L), dL and dA, and their plain
+versions.
 
-Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_fwd_b16 (reached there
-through atl_sq_colsum).  The kernel is csrc/tril_fwd.cu.  On the H100 the
-op is tensor-core bound (K*N*M^2/2 = 5.5e11 multiply-adds a layer at
-M=4096, N=8192, K=8), so it runs bf16 wmma fragments with fp32
-accumulators held over the whole m-run, visits only the m-tiles on or
-below each output tile's diagonal, and zeroes L's strictly-upper entries
-as it stages them.
+Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_fwd_b16 (forward) and
+_k_dl_g / _k_da_g (backward), reached there through atl_sq_colsum.  The
+kernels are csrc/tril_fwd.cu and csrc/tril_bwd.cu.  On the H100 each is
+tensor-core bound (K*N*M^2/2 = 5.5e11 multiply-adds a layer at M=4096,
+N=8192, K=8), so each runs bf16 wmma fragments with fp32 accumulators held
+over the whole contraction, visits only the tiles on or below the diagonal,
+and zeroes L's strictly-upper entries as it stages them.  The backward
+kernels form W = bf16(B16 * G) while staging each tile (G = 2 * the
+cotangent of the square-sum), so no W array reaches device memory.
 
 As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and the square-sum
-over m' runs outside the kernel: B16 stays the kernel's output because the
-backward kernels of the training slice read it.
+over m' runs outside the kernel: B16 stays the forward kernel's output
+because the backward kernels read it.
 
-``tril_sq_fwd`` takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.  Every launch adds one to
-``tril_sq_fwd.launches``.
+Each wrapper (``tril_sq_fwd``, ``tril_sq_dl``, ``tril_sq_da``) takes its
+plain version only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.  Every launch adds one to the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ import torch
 
 from .. import _native
 
-__all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "atl_sq_colsum",
-           "check_launch_args"]
+__all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "tril_sq_dl", "tril_sq_dl_plain",
+           "tril_sq_da", "tril_sq_da_plain", "atl_sq_colsum",
+           "check_launch_args", "check_bwd_launch_args"]
 
 
 def tril_sq_fwd_plain(A16, L16):
@@ -32,9 +36,41 @@ def tril_sq_fwd_plain(A16, L16):
     return (A16.float().T @ torch.tril(L16.float())).to(torch.bfloat16)
 
 
+def _scaled(B16, G):
+    """W = bf16(f32(B16) * G), the rounding order of the TPU kernels."""
+    return (B16.float() * G[:, :, None]).to(torch.bfloat16)
+
+
+def tril_sq_dl_plain(A16, B16, G):
+    """dL[k] = tril(A16 W_k) with fp32 accumulation: [M, N], [K, N, M],
+    [K, N] -> [K, M, M] fp32."""
+    return torch.tril(A16.float() @ _scaled(B16, G).float())
+
+
+def tril_sq_da_plain(L16, B16, G):
+    """dA = sum_k tril(L16_k) W_k^T with fp32 accumulation, as one
+    [M, K*M] x [K*M, N] product: [K, M, M], [K, N, M], [K, N] -> [M, N]."""
+    K, M, _ = L16.shape
+    Lcat = torch.tril(L16.float()).permute(1, 0, 2).reshape(M, K * M)
+    Wcat = _scaled(B16, G).float().transpose(1, 2).reshape(K * M, -1)
+    return Lcat @ Wcat
+
+
 def check_launch_args(A16, L16):
     _native.require("tril_sq_fwd A16", A16, torch.bfloat16, A16.device)
     _native.require("tril_sq_fwd L16", L16, torch.bfloat16, A16.device)
+
+
+def check_bwd_launch_args(what, X16, B16, G):
+    _native.require(f"{what} operand", X16, torch.bfloat16, X16.device)
+    _native.require(f"{what} B16", B16, torch.bfloat16, X16.device)
+    _native.require(f"{what} G", G, torch.float32, X16.device)
+
+
+def _check_device(what, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
 
 
 def tril_sq_fwd(A16, L16):
@@ -42,10 +78,8 @@ def tril_sq_fwd(A16, L16):
     if A16.ndim != 2 or L16.ndim != 3 or L16.shape[1:] != (A16.shape[0],) * 2:
         raise ValueError(f"tril_sq_fwd: expected [M, N] and [K, M, M], got "
                          f"{tuple(A16.shape)} and {tuple(L16.shape)}")
-    if A16.device.type == "cpu":
+    if not _check_device("tril_sq_fwd", A16):
         return tril_sq_fwd_plain(A16, L16)
-    if A16.device.type != "cuda":
-        raise ValueError(f"tril_sq_fwd: unsupported device {A16.device}")
     check_launch_args(A16, L16)
     M, N = A16.shape
     K = L16.shape[0]
@@ -58,12 +92,80 @@ def tril_sq_fwd(A16, L16):
     return B16
 
 
+def _check_bwd_shapes(what, operand, X16, B16, G):
+    """(K, N, M) of B16 [K, N, M], checked against the operand (A16 [M, N]
+    or L16 [K, M, M]) and G [K, N]."""
+    K, N, M = B16.shape if B16.ndim == 3 else (-1, -1, -1)
+    want = {"A16": (M, N), "L16": (K, M, M)}[operand]
+    if K < 0 or X16.shape != want or G.shape != (K, N):
+        raise ValueError(f"{what}: expected B16 [K, N, M], {operand} "
+                         f"{'[M, N]' if operand == 'A16' else '[K, M, M]'} "
+                         f"and G [K, N], got {tuple(B16.shape)}, "
+                         f"{tuple(X16.shape)} and {tuple(G.shape)}")
+    return K, N, M
+
+
+def tril_sq_dl(A16, B16, G):
+    """dL[k, m, m'] = sum_n A16[m, n] bf16(B16[k, n, m'] G[k, n]) for
+    m >= m', exactly 0 above the diagonal: -> [K, M, M] fp32."""
+    K, N, M = _check_bwd_shapes("tril_sq_dl", "A16", A16, B16, G)
+    if not _check_device("tril_sq_dl", A16):
+        return tril_sq_dl_plain(A16, B16, G)
+    check_bwd_launch_args("tril_sq_dl", A16, B16, G)
+    dL = torch.empty((K, M, M), dtype=torch.float32, device=A16.device)
+    code = _native.library().mgp_tril_dl(
+        A16.data_ptr(), B16.data_ptr(), G.data_ptr(), dL.data_ptr(), M, N, K,
+        _native.stream_ptr(A16.device))
+    _native.check(code, "tril_sq_dl")
+    tril_sq_dl.launches += 1
+    return dL
+
+
+def tril_sq_da(L16, B16, G):
+    """dA[m, n] = sum_k sum_{m' <= m} L16[k, m, m'] bf16(B16[k, n, m']
+    G[k, n]) (L16's upper triangle ignored): -> [M, N] fp32."""
+    K, N, M = _check_bwd_shapes("tril_sq_da", "L16", L16, B16, G)
+    if not _check_device("tril_sq_da", L16):
+        return tril_sq_da_plain(L16, B16, G)
+    check_bwd_launch_args("tril_sq_da", L16, B16, G)
+    dA = torch.empty((M, N), dtype=torch.float32, device=L16.device)
+    code = _native.library().mgp_tril_da(
+        L16.data_ptr(), B16.data_ptr(), G.data_ptr(), dA.data_ptr(), M, N, K,
+        _native.stream_ptr(L16.device))
+    _native.check(code, "tril_sq_da")
+    tril_sq_da.launches += 1
+    return dA
+
+
 tril_sq_fwd.launches = 0
+tril_sq_dl.launches = 0
+tril_sq_da.launches = 0
+
+
+class _AtlSqColsum(torch.autograd.Function):
+    """pallas_tril.atl_sq_colsum's custom VJP (:561-597): the forward keeps
+    (A16, L16, B16); the backward scales by G = 2 gbar inside the dL / dA
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, A, L):
+        A16 = A.to(torch.bfloat16).contiguous()
+        L16 = L.to(torch.bfloat16).contiguous()
+        B16 = tril_sq_fwd(A16, L16)
+        ctx.save_for_backward(A16, L16, B16)
+        return B16.float().square().sum(-1)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        A16, L16, B16 = ctx.saved_tensors
+        G = (2.0 * gbar).float().contiguous()
+        dA = tril_sq_da(L16, B16, G) if ctx.needs_input_grad[0] else None
+        dL = tril_sq_dl(A16, B16, G) if ctx.needs_input_grad[1] else None
+        return dA, dL
 
 
 def atl_sq_colsum(A, L):
     """extra[k, n] = sum_m' (A^T tril L_k)[n, m']^2 with B held in bf16:
-    A [M, N], L [K, M, M] (lower triangle read) -> [K, N] fp32."""
-    B16 = tril_sq_fwd(A.to(torch.bfloat16).contiguous(),
-                      L.to(torch.bfloat16).contiguous())
-    return B16.float().square().sum(-1)
+    A [M, N], L [K, M, M] (lower triangle read) -> [K, N] fp32, with its
+    gradient through the dL / dA kernels (dA returned as fp32)."""
+    return _AtlSqColsum.apply(A, L)

@@ -1,10 +1,12 @@
 """Guards of modulatedgps_tpu_torch that need no card.
 
 The port never imports jax, importing it builds nothing, CPU tensors never
-launch a kernel, and each CUDA wrapper's own argument checks refuse what
-its kernel does not take (a tensor that requires grad: no backward kernel
-yet; a wrong dtype).  Also the constrained-parameter transforms, the jitter
-policy and the shape checker against the JAX package.
+launch a kernel (not in a forward, not in a backward), the entry points
+create their state on the card unless asked for the CPU, and each CUDA
+wrapper's own argument checks refuse what its kernel does not take (a
+tensor that requires grad while autograd records: a raw launcher records
+no gradient; a wrong dtype).  Also the constrained-parameter transforms,
+the jitter policy and the shape checker against the JAX package.
 """
 import os
 import subprocess
@@ -22,7 +24,8 @@ from modulatedgps_tpu.utils import shapes as jshapes
 
 import modulatedgps_tpu_torch as pt
 from modulatedgps_tpu_torch import _native, config, params
-from modulatedgps_tpu_torch.ops import kxz_kernel, tril_kernel, trsm_kernel
+from modulatedgps_tpu_torch.ops import (kxz_kernel, tril_kernel, trimm_kernel,
+                                        trsm_kernel)
 from modulatedgps_tpu_torch.utils.shapes import ShapeChecker, ShapeError
 
 REPO = Path(__file__).resolve().parents[1]
@@ -57,23 +60,84 @@ def test_cpu_tensors_launch_nothing():
     trsm_kernel.trsm_lower(torch.linalg.cholesky(K[:10] @ K[:10].T
                                                  + torch.eye(10)))
     tril_kernel.atl_sq_colsum(torch.randn(10, 7), torch.randn(2, 10, 10))
-    assert pt.launch_counts() == {"kxz": 0, "trsm_lower": 0, "tril_sq_fwd": 0}
+    assert pt.launch_counts() == dict.fromkeys(KERNELS, 0)
     assert _native._lib is None
 
 
-@pytest.mark.parametrize("case", ["kxz", "trsm_lower", "tril_sq_fwd"])
+KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
+           "tri_tt_matmul", "tri_nt_matmul")
+
+
+def test_cpu_train_step_launches_nothing():
+    """A whole loss, backward and Adam step of a float32 SMGP on CPU
+    tensors runs the plain versions only."""
+    rng = np.random.default_rng(0)
+    M, K, D, N = 16, 2, 2, 24
+    layer = lambda: pt.SVGP.create(
+        pt.SquaredExponential.create(0.5, 0.7, device="cpu"),
+        rng.normal(size=(M, D)), K, device="cpu")
+    model = pt.SMGP(pt.Gaussian.create(0.5, D=K, device="cpu"), layer(),
+                    layer(), K=K, num_samples=3, num_data=100)
+    with torch.no_grad():
+        model.pred_layer.q_sqrt.raw.add_(
+            0.05 * torch.tril(torch.randn(K, M, M)))
+    pt.reset_launch_counts()
+    step = pt.make_train_step(pt.Adam(model.parameters(), 1e-2))
+    loss = step(model, torch.Generator().manual_seed(0),
+                torch.as_tensor(rng.uniform(-2, 2, size=(N, D)),
+                                dtype=torch.float32),
+                torch.as_tensor(rng.normal(size=(N, 1)), dtype=torch.float32))
+    assert bool(torch.isfinite(loss))
+    assert all(p.grad is not None for p in model.parameters())
+    assert pt.launch_counts() == dict.fromkeys(KERNELS, 0)
+    assert _native._lib is None
+
+
+def test_entry_points_default_to_the_card():
+    """SVGP.create, the kernels' create and Gaussian.create put their state
+    on the card unless given a device; without a card they raise instead
+    of falling back to the CPU."""
+    creates = [lambda: pt.SquaredExponential.create(0.5, 0.7),
+               lambda: pt.Matern32.create(0.5, 0.7),
+               lambda: pt.Gaussian.create(0.5, D=2),
+               lambda: pt.SVGP.create(
+                   pt.SquaredExponential.create(device="cpu"),
+                   np.zeros((4, 2)), 2)]
+    for create in creates:
+        if torch.cuda.is_available():
+            assert all(p.device.type == "cuda"
+                       for p in create().parameters())
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                create()
+
+
+def _grad(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype, requires_grad=True)
+
+
+@pytest.mark.parametrize("case", ["kxz", "trsm_lower", "tril_sq_fwd",
+                                  "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
+                                  "tri_nt_matmul"])
 def test_cuda_argument_checks_refuse_grad(case):
-    with pytest.raises(NotImplementedError, match="training slice"):
+    bf16 = torch.bfloat16
+    with pytest.raises(NotImplementedError, match="autograd Function"):
         if case == "kxz":
             kxz_kernel.check_launch_args(
                 torch.zeros(4, 2, requires_grad=True), torch.zeros(3, 2),
                 torch.tensor(1.0), torch.tensor(1.0))
         elif case == "trsm_lower":
             trsm_kernel.check_launch_args(torch.eye(4, requires_grad=True))
-        else:
+        elif case == "tril_sq_fwd":
             tril_kernel.check_launch_args(
                 torch.zeros(4, 3, dtype=torch.bfloat16, requires_grad=True),
                 torch.zeros(1, 4, 4, dtype=torch.bfloat16))
+        elif case in ("tril_sq_dl", "tril_sq_da"):
+            tril_kernel.check_bwd_launch_args(
+                case, torch.zeros(4, 3, dtype=bf16),
+                torch.zeros(1, 3, 4, dtype=bf16), _grad(1, 3))
+        else:
+            trimm_kernel.check_launch_args(case, torch.eye(4), _grad(4, 4))
 
 
 def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
@@ -88,7 +152,8 @@ def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
 
 
 @pytest.mark.parametrize("case", ["kxz", "kxz_variance", "trsm_lower",
-                                  "trsm_rhs", "tril_sq_fwd"])
+                                  "trsm_rhs", "tril_sq_fwd", "tril_sq_bwd_G",
+                                  "tril_sq_bwd_B16", "trimm"])
 def test_cuda_argument_checks_refuse_dtype(case):
     f64 = torch.float64
     with pytest.raises(TypeError):
@@ -104,9 +169,22 @@ def test_cuda_argument_checks_refuse_dtype(case):
             trsm_kernel.check_launch_args(torch.eye(4, dtype=f64))
         elif case == "trsm_rhs":
             trsm_kernel.check_launch_args(torch.eye(4), torch.eye(4, dtype=f64))
-        else:   # the tril kernel takes bf16, cast by atl_sq_colsum
+        elif case == "tril_sq_fwd":   # bf16, cast by atl_sq_colsum
             tril_kernel.check_launch_args(torch.zeros(4, 3),
                                           torch.zeros(1, 4, 4))
+        elif case == "tril_sq_bwd_G":
+            tril_kernel.check_bwd_launch_args(
+                "tril_sq_dl", torch.zeros(4, 3, dtype=torch.bfloat16),
+                torch.zeros(1, 3, 4, dtype=torch.bfloat16),
+                torch.zeros(1, 3, dtype=f64))
+        elif case == "tril_sq_bwd_B16":
+            tril_kernel.check_bwd_launch_args(
+                "tril_sq_da", torch.zeros(1, 4, 4, dtype=torch.bfloat16),
+                torch.zeros(1, 3, 4), torch.zeros(1, 3))
+        else:   # the pullback products take fp32; f64 stays on the CPU
+            trimm_kernel.check_launch_args("tri_tt_matmul",
+                                           torch.eye(4, dtype=f64),
+                                           torch.eye(4, dtype=f64))
 
 
 def test_cuda_argument_checks_refuse_layout_and_shape():
@@ -170,7 +248,8 @@ def test_shape_checker_matches_jax():
 
 
 def test_svgp_predict_f_checks_shapes():
-    kern = pt.SquaredExponential.create(dtype=torch.float64)
-    layer = pt.SVGP.create(kern, np.zeros((4, 2)), 2, dtype=torch.float64)
+    kern = pt.SquaredExponential.create(dtype=torch.float64, device="cpu")
+    layer = pt.SVGP.create(kern, np.zeros((4, 2)), 2, dtype=torch.float64,
+                           device="cpu")
     with pytest.raises(ShapeError):
         layer.predict_f(torch.zeros(5, 3, dtype=torch.float64))

@@ -47,7 +47,8 @@ def test_kernel_classes_match_jax_f64(name):
     X = rng.normal(size=(40, 2))
     Z = rng.normal(size=(25, 2))
     jkern = getattr(jk, name).create(0.8, [0.6, 1.1])
-    tkern = getattr(tk, name).create(0.8, [0.6, 1.1], dtype=torch.float64)
+    tkern = getattr(tk, name).create(0.8, [0.6, 1.1], dtype=torch.float64,
+                                     device="cpu")
     Xt, Zt = torch.as_tensor(X), torch.as_tensor(Z)
     with torch.inference_mode():
         pairs = [(tkern.K(Xt, Zt), jkern.K(jnp.asarray(X), jnp.asarray(Z))),
@@ -60,7 +61,7 @@ def test_kernel_classes_match_jax_f64(name):
 
 
 def test_kernel_full_cov_false_rejects_x2():
-    kern = tk.SquaredExponential.create(dtype=torch.float64)
+    kern = tk.SquaredExponential.create(dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError):
         kern(torch.zeros(3, 2, dtype=torch.float64),
              torch.zeros(4, 2, dtype=torch.float64), full_cov=False)

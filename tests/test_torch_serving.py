@@ -102,7 +102,8 @@ def test_slice_matches_jax_f64(outputs, case):
 
 
 def test_cpu_run_launches_no_kernel(outputs):
-    assert outputs[1] == {"kxz": 0, "trsm_lower": 0, "tril_sq_fwd": 0}
+    assert set(outputs[1]) >= {"kxz", "trsm_lower", "tril_sq_fwd"}
+    assert not any(outputs[1].values())
 
 
 def test_serving_invariants(outputs):
@@ -121,8 +122,9 @@ def test_svgp_create_and_kuu_match_jax(q_diag):
     Z = rng.normal(size=(M, D))
     jl = JSVGP.create(JSE.create(0.5, 0.5), Z, num_latent_gps=K, q_diag=q_diag)
     tl = pt.SVGP.create(pt.SquaredExponential.create(0.5, 0.5,
-                                                     dtype=torch.float64),
-                        Z, K, q_diag=q_diag, dtype=torch.float64)
+                                                     dtype=torch.float64,
+                                                     device="cpu"),
+                        Z, K, q_diag=q_diag, dtype=torch.float64, device="cpu")
     for name in ("Z", "q_mu", "q_sqrt"):
         np.testing.assert_allclose(getattr(tl, name).value.detach().numpy(),
                                    np.asarray(getattr(jl, name).value),

@@ -1,5 +1,5 @@
-"""The q_sqrt variance term of modulatedgps_tpu_torch against the JAX
-Pallas kernel.
+"""The q_sqrt variance term of modulatedgps_tpu_torch and its gradient
+against the JAX Pallas kernels.
 
 The port's atl_sq_colsum on CPU tensors runs the plain version of the tril
 kernel: bf16(A^T tril L) with f32 accumulation, squared and summed.  It is
@@ -8,11 +8,15 @@ mode, at M=768 (BM 256, 3 block rows), N=300 (padded to the TPU's TN
 inside JAX), K=2, with non-zero garbage above L's diagonal.  Tolerance:
 rtol 2e-2 and atol 1e-2 * max, the bf16 bound of tests/test_pallas_tril.py:
 both hold B in bf16, and a product that rounds to the other side of a bf16
-step moves by ~0.4%.
+step moves by ~0.4%.  The gradients (the dL / dA kernels' plain versions
+behind the autograd Function) are held against JAX atl_sq_colsum's custom
+VJP, also in interpret mode, at that suite's gradient tolerance: 3e-2
+(rtol, and atol as a fraction of the largest magnitude).
 """
 import contextlib
 import unittest.mock as mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ import torch
 from modulatedgps_tpu.ops import pallas_tril as ptl
 
 from modulatedgps_tpu_torch.ops.tril_kernel import (atl_sq_colsum,
+                                                    tril_sq_da,
+                                                    tril_sq_dl,
                                                     tril_sq_fwd,
                                                     tril_sq_fwd_plain)
 
@@ -77,6 +83,60 @@ def test_tril_fwd_matches_f64_dense(data):
     got = tril_sq_fwd(A16, L16).double().numpy()
     np.testing.assert_allclose(got, exact, rtol=2 ** -8,
                                atol=1e-5 * np.abs(exact).max())
+
+
+def test_sq_colsum_gradients_match_pallas_interpret(data):
+    A, L = data
+    w = np.random.default_rng(1).normal(size=(K, N)).astype(np.float32)
+
+    def jloss(A, L):
+        return jnp.sum(jnp.asarray(w) * ptl.atl_sq_colsum(A, L))
+
+    with _interpret():
+        want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(L))
+    At = torch.tensor(A, requires_grad=True)
+    Lt = torch.tensor(L, requires_grad=True)
+    (torch.as_tensor(w) * atl_sq_colsum(At, Lt)).sum().backward()
+    assert At.grad.dtype == torch.float32 and Lt.grad.dtype == torch.float32
+    for got, ref in ((At.grad, want[0]), (Lt.grad, want[1])):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=3e-2,
+                                   atol=3e-2 * np.abs(ref).max())
+    assert not torch.triu(Lt.grad, 1).any()
+
+
+def test_backward_plain_versions_match_f64_dense(data):
+    """dL and dA of bf16 operands with fp32 accumulation are within fp32
+    rounding of the f64 products of the same bf16 values (W rounded to bf16
+    once, as the kernels do)."""
+    A, L = data
+    A16 = torch.as_tensor(A).to(torch.bfloat16)
+    L16 = torch.as_tensor(L).to(torch.bfloat16)
+    B16 = tril_sq_fwd(A16, L16)
+    G = torch.as_tensor(np.random.default_rng(3).normal(size=(K, N)),
+                        dtype=torch.float32)
+    W = (B16.float() * G[:, :, None]).to(torch.bfloat16).double()
+    dL_exact = torch.tril(A16.double() @ W)
+    dA_exact = (torch.tril(L16.double()) @ W.transpose(1, 2)).sum(0)
+    for got, exact in ((tril_sq_dl(A16, B16, G), dL_exact),
+                       (tril_sq_da(L16, B16, G), dA_exact)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.double().numpy(), exact.numpy(),
+                                   rtol=1e-5, atol=1e-5 * exact.abs().max().item())
+    assert not torch.triu(tril_sq_dl(A16, B16, G), 1).any()
+
+
+def test_tril_bwd_rejects_bad_shapes():
+    A16 = torch.zeros(4, 3, dtype=torch.bfloat16)
+    B16 = torch.zeros(2, 3, 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tril_sq_dl(A16, B16, torch.zeros(2, 4))
+    with pytest.raises(ValueError):
+        tril_sq_da(torch.zeros(2, 5, 5, dtype=torch.bfloat16), B16,
+                   torch.zeros(2, 3))
+    with pytest.raises(ValueError):
+        tril_sq_dl(A16, torch.zeros(3, 4, dtype=torch.bfloat16),
+                   torch.zeros(2, 3))
 
 
 def test_tril_fwd_rejects_bad_shapes():
