@@ -1,5 +1,6 @@
-"""PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving path and
-its Adam train step.
+"""PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving path, joint
+posterior sampling, and the Adam train step with checkpoints and
+multi-start.
 
 The JAX package beside this one is the reference each ported part is held
 against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on these
@@ -23,9 +24,11 @@ from .likelihoods import Gaussian  # noqa: E402
 from .models import SGP, SMGP, SVGP, precompute_posterior, precompute_smgp  # noqa: E402
 from .ops import launch_counts, reset_launch_counts  # noqa: E402
 from .ops.kernels import Matern32, SquaredExponential  # noqa: E402
-from .training import Adam, make_train_step, run_adam  # noqa: E402
+from .training import (Adam, make_train_step, restore_checkpoint,  # noqa: E402
+                       run_adam, run_adam_multistart, save_checkpoint)
 
 __all__ = ["Adam", "Gaussian", "SGP", "SMGP", "SVGP", "Matern32",
            "SquaredExponential", "launch_counts", "make_train_step",
            "precompute_posterior", "precompute_smgp", "reset_launch_counts",
-           "run_adam", "smgp_from_numpy", "smgp_to_numpy"]
+           "restore_checkpoint", "run_adam", "run_adam_multistart",
+           "save_checkpoint", "smgp_from_numpy", "smgp_to_numpy"]

@@ -1,7 +1,7 @@
 """Mixture of SVGPs with GP-modulated data association (SMGP).
 
-Mirrors modulatedgps_tpu/models/smgp.py:74-169 (noise, the doubly
-stochastic ELBO) and its prediction methods.  K experts share the inputs;
+Mirrors modulatedgps_tpu/models/smgp.py:74-212 (noise, the doubly
+stochastic ELBO) and its prediction and sampling methods.  K experts share the inputs;
 the prediction layer gives per-expert latents f_k and the assignment layer
 gives the logits of the mixture weights, drawn through a temperature-1e-2
 Gumbel-softmax to soft one-hot weights W [S, N, K].  The ELBO is
@@ -77,6 +77,13 @@ class SMGP(SGP):
         amu, avar = self.assign_layer.predict_f(Xnew)
         return self._W_from_marginals(amu, avar, z, g)
 
+    def sample_W(self, generator: torch.Generator, Xnew, S: int):
+        """S Gumbel-softmax assignment draws W [S, N, K] (smgp.py:97-101),
+        from noise drawn as draw_noise draws it."""
+        amu, avar = self.assign_layer.predict_f(Xnew)
+        z, g = self.draw_noise(generator, Xnew.shape[0], S, amu.dtype)
+        return self._W_from_marginals(amu, avar, z, g)
+
     def _W_from_marginals(self, amu, avar, z, g):
         log_assign = reparameterize(amu, avar, z)                # [S, N, K]
         return torch.softmax((log_assign + g) / self.temperature, dim=-1)
@@ -126,3 +133,17 @@ class SMGP(SGP):
         Fmu, Fvar = self.pred_layer.predict_f(Xnew)
         log_pk = self.likelihood.predict_density_per_expert(Fmu, Fvar, Ynew)
         return torch.logsumexp(torch.log(pi + 1e-12) + log_pk, dim=-1)
+
+    def predict_samples(self, generator: torch.Generator, Xnew, S: int = 1):
+        """Mixture draws (samples_y, samples_f), each [S, N, 1]
+        (smgp.py:199-212): W from ``sample_W``, then one z [S, N, K] drawn
+        after it, reused for both the y and the f draws as the reference
+        does."""
+        W = self.sample_W(generator, Xnew, S)                    # [S, N, K]
+        Fmu, Fvar = self.pred_layer.predict_f(Xnew)              # [N, K]
+        mean, var = self.likelihood.predict_mean_and_var(Fmu, Fvar)
+        z = torch.randn((S, *Fmu.shape), generator=generator, dtype=Fmu.dtype,
+                        device=generator.device)
+        samples_y = (reparameterize(mean, var, z) * W).sum(2, keepdim=True)
+        samples_f = (reparameterize(Fmu, Fvar, z) * W).sum(2, keepdim=True)
+        return samples_y, samples_f

@@ -1,7 +1,8 @@
 """Sparse variational GP layer (inducing points, whitened posterior).
 
 Mirrors modulatedgps_tpu/models/svgp.py for whitened layers: ``create``,
-``kuu``, the diagonal ``predict_f`` and ``prior_kl``.  Kmn is built as
+``kuu``, ``predict_f`` (marginal or joint), ``predict_f_samples`` and
+``prior_kl``.  Kmn is built as
 kernel.K(Z, Xnew) and Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu
 [M, K], q_sqrt tril [K, M, M] (init: K stacked identities) or diagonal
 [M, K].  ``create`` puts the state on the card unless given a device.
@@ -15,6 +16,7 @@ from ..config import default_jitter
 from ..ops.conditionals import base_conditional, expand_independent_outputs
 from ..ops.kernels import Kernel
 from ..ops.kl import gauss_kl
+from ..ops.linalg import add_jitter
 from ..params import Parameter
 from ..utils.shapes import ShapeChecker
 
@@ -29,7 +31,8 @@ class SVGP(nn.Module):
         if not whiten:
             raise NotImplementedError(
                 "the port serves whitened layers; the unwhitened conditional "
-                "waits for the port of pallas_linalg._trsm_t_kernel")
+                "waits for the pullback of the TRSM inverse and the "
+                "unwhitened KL")
         self.kernel = kernel
         self.Z = Z
         self.q_mu = q_mu
@@ -62,18 +65,48 @@ class SVGP(nn.Module):
         eye = torch.eye(Z.shape[0], dtype=Z.dtype, device=Z.device)
         return self.kernel.K(Z) + jitter * eye
 
-    def predict_f(self, Xnew: torch.Tensor, *, full_output_cov: bool = False):
-        """Marginal posterior q(f(Xnew)) at Xnew [N, D]: ([N, K], [N, K])."""
+    def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False,
+                  full_output_cov: bool = False):
+        """Posterior q(f(Xnew)) at Xnew [N, D]: the mean [N, K] and the
+        marginal variances [N, K], or with ``full_cov`` the covariance over
+        the N points per latent, [K, N, N]."""
         chk = ShapeChecker()
         chk.check(self.Z.value, "M D", "Z")
         chk.check(Xnew, "N D", "Xnew")
         Kmm = self.kuu()
         Kmn = self.kernel.K(self.Z.value, Xnew)
-        Knn = self.kernel(Xnew, full_cov=False)
+        Knn = self.kernel(Xnew, full_cov=full_cov)
         fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
-                                       q_sqrt=self.q_sqrt.value, white=True)
-        return fmean, expand_independent_outputs(fvar, False, full_output_cov)
+                                       q_sqrt=self.q_sqrt.value,
+                                       full_cov=full_cov, white=True)
+        return fmean, expand_independent_outputs(fvar, full_cov,
+                                                 full_output_cov)
+
+    def predict_f_samples(self, generator: torch.Generator, Xnew: torch.Tensor,
+                          num_samples: int = 1, *,
+                          full_cov: bool = True) -> torch.Tensor:
+        """Draws from q(f(Xnew)), [S, N, K] (svgp.py:102-126).
+
+        ``full_cov=True`` draws from the joint posterior over Xnew: mean +
+        L z with L the Cholesky factor of each latent's [N, N] covariance
+        plus jitter I (torch.linalg.cholesky raises on a matrix that is not
+        positive definite, where JAX returns NaNs).  ``full_cov=False``
+        draws each point from its marginal.  z is drawn from ``generator``,
+        [S, K, N, 1] for the joint form, [S, N, K] for the marginal one.
+        """
+        mean, var = self.predict_f(Xnew, full_cov=full_cov)
+        jitter = default_jitter(mean.dtype)
+        if not full_cov:
+            z = torch.randn((num_samples, *mean.shape), generator=generator,
+                            dtype=mean.dtype, device=mean.device)
+            return mean + z * torch.sqrt(var.clamp_min(0.0) + jitter)
+        L = torch.linalg.cholesky(add_jitter(var, jitter))      # [K, N, N]
+        z = torch.randn((num_samples, *var.shape[:-1], 1), generator=generator,
+                        dtype=mean.dtype, device=mean.device)    # [S, K, N, 1]
+        f = L @ z[..., 0].permute(1, 2, 0)                       # [K, N, S]
+        return mean[None] + f.permute(2, 1, 0)                   # [S, N, K]
 
     def prior_kl(self) -> torch.Tensor:
         """KL[q(u) || N(0, I)] (svgp.py:128-132 with whiten=True)."""
-        return gauss_kl(self.q_mu.value, self.q_sqrt.value)
+        return gauss_kl(self.q_mu.value, self.q_sqrt.value,
+                        assume_tril=self.q_sqrt.transform == "tril")

@@ -1,15 +1,20 @@
 """Kernels, linear algebra, the conditional, sampling and the KL."""
+from ..training.fused_adam import adam_tril_
+from .kl_kernel import kl_bwd_scale, kl_sq_logdiag
 from .kxz_kernel import kxz
-from .tril_kernel import tril_sq_da, tril_sq_dl, tril_sq_fwd
+from .tril_kernel import tril_fwd_f32, tril_sq_da, tril_sq_dl, tril_sq_fwd
 from .trimm_kernel import tri_nt_matmul, tri_tt_matmul
 from .trsm_kernel import trsm_lower
 
 __all__ = ["kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
-           "tri_tt_matmul", "tri_nt_matmul", "launch_counts",
+           "tri_tt_matmul", "tri_nt_matmul", "kl_sq_logdiag", "kl_bwd_scale",
+           "adam_tril_", "tril_fwd_f32", "launch_counts",
            "reset_launch_counts"]
 
-_WRAPPERS = (kxz, trsm_lower, tril_sq_fwd, tril_sq_dl, tril_sq_da,
-             tri_tt_matmul, tri_nt_matmul)
+# Every CUDA kernel wrapper, in the order of the kernels' table in PERF.md.
+_WRAPPERS = (kxz, trsm_lower, tril_sq_fwd, tril_fwd_f32, tril_sq_dl,
+             tril_sq_da, tri_tt_matmul, tri_nt_matmul, kl_sq_logdiag,
+             kl_bwd_scale, adam_tril_)
 
 
 def launch_counts() -> dict[str, int]:

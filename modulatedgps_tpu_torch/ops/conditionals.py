@@ -1,25 +1,31 @@
 """Sparse-GP conditional: Cholesky, triangular inverse, matmuls.
 
-Mirrors modulatedgps_tpu/ops/conditionals.py for the serving slice:
-``base_conditional`` with white=True and full_cov=False, for a
-lower-triangular [K, M, M], diagonal [M, K] or absent q_sqrt:
+Mirrors modulatedgps_tpu/ops/conditionals.py: ``base_conditional`` with
+white=True, for a lower-triangular [K, M, M], diagonal [M, K] or absent
+q_sqrt, marginal (full_cov=False) or joint over the N points (full_cov=True):
 
     A     = chol(Kmm)^-1 Kmn                  [M, N]
     fmean = A^T q_mu                          [N, K]
-    fvar  = Knn - sum_m A^2 + sum_m' (A^T tril q_sqrt_k)^2     [N, K]
+    B_k   = A^T tril q_sqrt_k                 [K, N, M]
+    fvar  = Knn - sum_m A^2 + sum_m' B^2      [N, K]       (marginal)
+    fvar  = Knn - A^T A + B_k B_k^T           [K, N, N]    (joint)
 
-For a float32 tril q_sqrt the last term goes through the bf16 tril kernels
-(tril_kernel.atl_sq_colsum, forward and backward), the precision class of
-the TPU path; its bf16 B puts ~0.4% relative error into that term, so fvar
-is clamped at 1e-12 as in JAX.  float64 (the CPU reference) forms B densely
-in float64.  Gradients flow through both routes and through whiten_solve.
+For a float32 tril q_sqrt, B goes through the bf16 tril kernels, the
+precision class of the TPU path: the marginal through
+tril_kernel.atl_sq_colsum (B held in bf16, forward and backward; its ~0.4%
+relative error in the q_sqrt term is why fvar is clamped at 1e-12 as in
+JAX), the joint through tril_kernel.atl_matmul (f32 B from bf16 operands,
+forward only).  The two [N, N] products of the joint form stay fp32
+matmuls, as JAX leaves them to XLA.  float64 (the CPU reference) forms B
+densely in float64.  Gradients flow through the marginal routes and
+through whiten_solve.
 """
 from __future__ import annotations
 
 import torch
 
 from .linalg import whiten_solve
-from .tril_kernel import atl_sq_colsum
+from .tril_kernel import atl_matmul, atl_sq_colsum
 
 __all__ = ["base_conditional", "expand_independent_outputs"]
 
@@ -45,29 +51,39 @@ def expand_independent_outputs(fvar: torch.Tensor, full_cov: bool,
 
 def base_conditional(Kmn, Kmm, Knn, q_mu, *, q_sqrt=None,
                      full_cov: bool = False, white: bool = True):
-    """Marginal q(f) = N(fmean, fvar) of a whitened SVGP: ([N, K], [N, K]).
+    """q(f) = N(fmean, fvar) of a whitened SVGP: fmean [N, K] and fvar
+    [N, K] (full_cov=False) or [K, N, N] (full_cov=True).
 
-    Kmn [M, N], Kmm [M, M], Knn [N] (the diagonal), q_mu [M, K].
+    Kmn [M, N], Kmm [M, M], Knn [N] (the diagonal) or [N, N] (full_cov),
+    q_mu [M, K].
     """
-    if not white or full_cov:
+    if not white:
         raise NotImplementedError(
-            "the port serves white=True, full_cov=False; the other "
-            "conditionals wait for later slices")
+            "the port serves white=True; the unwhitened conditional waits for "
+            "the pullback of the TRSM inverse and the unwhitened KL")
     A = whiten_solve(Kmm, Kmn)                                 # [M, N]
-    fvar = Knn - A.square().sum(-2)                            # [N]
     fmean = A.T @ q_mu                                         # [N, K]
     K = q_mu.shape[-1]
+    if full_cov:
+        fvar = Knn - A.T @ A                                   # [N, N]
+    else:
+        fvar = Knn - A.square().sum(-2)                        # [N]
     if q_sqrt is None:
-        return fmean, fvar[:, None].expand(-1, K)
+        return fmean, (fvar.expand(K, *fvar.shape) if full_cov
+                       else fvar[:, None].expand(-1, K))
     if q_sqrt.ndim == 2:                                       # diag [M, K]
         B = q_sqrt.T[:, None, :] * A.T[None]                   # [K, N, M]
-        extra = B.square().sum(-1)
     elif q_sqrt.ndim == 3:                                     # tril [K, M, M]
-        if A.dtype == torch.float32:
+        if A.dtype == torch.float32 and not full_cov:
             extra = atl_sq_colsum(A, q_sqrt)                   # [K, N]
             fvar = (fvar[None, :] + extra).clamp_min(1e-12)
             return fmean, fvar.T
-        extra = (A.T[None] @ torch.tril(q_sqrt)).square().sum(-1)
+        if A.dtype == torch.float32:
+            B = atl_matmul(A, q_sqrt)                          # [K, N, M] f32
+        else:
+            B = A.T[None] @ torch.tril(q_sqrt)
     else:
         raise ValueError(f"q_sqrt must be rank 2 or 3, got {q_sqrt.ndim}")
-    return fmean, (fvar[None, :] + extra).T
+    if full_cov:
+        return fmean, fvar[None] + B @ B.transpose(-1, -2)     # [K, N, N]
+    return fmean, (fvar[None, :] + B.square().sum(-1)).T

@@ -1,10 +1,12 @@
-"""The q_sqrt variance term sum_m' (A^T tril L_k)^2 and its gradient: the
-CUDA kernels for B16 = bf16(A^T tril L), dL and dA, and their plain
-versions.
+"""The q_sqrt terms of the conditional: B = A^T tril L_k from bf16 operands.
+The CUDA kernels for B16 = bf16(B), for B in f32, for dL and dA, and their
+plain versions.
 
 Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_fwd_b16 (forward) and
-_k_dl_g / _k_da_g (backward), reached there through atl_sq_colsum.  The
-kernels are csrc/tril_fwd.cu and csrc/tril_bwd.cu.  On the H100 each is
+_k_dl_g / _k_da_g (backward), reached there through atl_sq_colsum (the
+diagonal variance sum_m' B^2), and _k_fwd, reached through atl_matmul (the
+f32 B of the full covariance).  The kernels are csrc/tril_fwd.cu (both
+forwards, one kernel templated on the output type) and csrc/tril_bwd.cu.  On the H100 each is
 tensor-core bound (K*N*M^2/2 = 5.5e11 multiply-adds a layer at M=4096,
 N=8192, K=8), so each runs bf16 wmma fragments with fp32 accumulators held
 over the whole contraction, visits only the tiles on or below the diagonal,
@@ -16,8 +18,11 @@ As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and the square-sum
 over m' runs outside the kernel: B16 stays the forward kernel's output
 because the backward kernels read it.
 
-Each wrapper (``tril_sq_fwd``, ``tril_sq_dl``, ``tril_sq_da``) takes its
-plain version only for CPU tensors; for CUDA tensors it launches the
+``atl_matmul``'s backward (pallas_tril._k_dl / _k_da) is not ported yet: it
+raises while autograd records.
+
+Each wrapper (``tril_sq_fwd``, ``tril_fwd_f32``, ``tril_sq_dl``,
+``tril_sq_da``) takes its plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.  Every launch adds one to the wrapper's ``launches``.
 """
 from __future__ import annotations
@@ -26,14 +31,20 @@ import torch
 
 from .. import _native
 
-__all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "tril_sq_dl", "tril_sq_dl_plain",
-           "tril_sq_da", "tril_sq_da_plain", "atl_sq_colsum",
+__all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "tril_fwd_f32",
+           "tril_fwd_f32_plain", "tril_sq_dl", "tril_sq_dl_plain",
+           "tril_sq_da", "tril_sq_da_plain", "atl_sq_colsum", "atl_matmul",
            "check_launch_args", "check_bwd_launch_args"]
+
+
+def tril_fwd_f32_plain(A16, L16):
+    """A^T tril(L) with fp32 accumulation: [M, N], [K, M, M] -> [K, N, M] f32."""
+    return A16.float().T @ torch.tril(L16.float())
 
 
 def tril_sq_fwd_plain(A16, L16):
     """bf16(A^T tril(L)) with fp32 accumulation: [M, N], [K, M, M] -> [K, N, M]."""
-    return (A16.float().T @ torch.tril(L16.float())).to(torch.bfloat16)
+    return tril_fwd_f32_plain(A16, L16).to(torch.bfloat16)
 
 
 def _scaled(B16, G):
@@ -56,9 +67,9 @@ def tril_sq_da_plain(L16, B16, G):
     return Lcat @ Wcat
 
 
-def check_launch_args(A16, L16):
-    _native.require("tril_sq_fwd A16", A16, torch.bfloat16, A16.device)
-    _native.require("tril_sq_fwd L16", L16, torch.bfloat16, A16.device)
+def check_launch_args(A16, L16, what="tril_sq_fwd"):
+    _native.require(f"{what} A16", A16, torch.bfloat16, A16.device)
+    _native.require(f"{what} L16", L16, torch.bfloat16, A16.device)
 
 
 def check_bwd_launch_args(what, X16, B16, G):
@@ -73,23 +84,42 @@ def _check_device(what, t):
     return t.device.type == "cuda"
 
 
-def tril_sq_fwd(A16, L16):
-    """B16[k, n, m'] = bf16(sum_{m >= m'} A16[m, n] L16[k, m, m'])."""
+def _check_fwd_shapes(what, A16, L16):
     if A16.ndim != 2 or L16.ndim != 3 or L16.shape[1:] != (A16.shape[0],) * 2:
-        raise ValueError(f"tril_sq_fwd: expected [M, N] and [K, M, M], got "
+        raise ValueError(f"{what}: expected [M, N] and [K, M, M], got "
                          f"{tuple(A16.shape)} and {tuple(L16.shape)}")
-    if not _check_device("tril_sq_fwd", A16):
-        return tril_sq_fwd_plain(A16, L16)
-    check_launch_args(A16, L16)
+    return _check_device(what, A16)
+
+
+def _fwd(what, entry, out_dtype, A16, L16):
+    """Launch one of the two forward entry points: -> [K, N, M] out_dtype."""
+    check_launch_args(A16, L16, what)
     M, N = A16.shape
     K = L16.shape[0]
-    B16 = torch.empty((K, N, M), dtype=torch.bfloat16, device=A16.device)
-    code = _native.library().mgp_tril_fwd(
-        A16.data_ptr(), L16.data_ptr(), B16.data_ptr(), M, N, K,
+    B = torch.empty((K, N, M), dtype=out_dtype, device=A16.device)
+    code = getattr(_native.library(), entry)(
+        A16.data_ptr(), L16.data_ptr(), B.data_ptr(), M, N, K,
         _native.stream_ptr(A16.device))
-    _native.check(code, "tril_sq_fwd")
+    _native.check(code, what)
+    return B
+
+
+def tril_sq_fwd(A16, L16):
+    """B16[k, n, m'] = bf16(sum_{m >= m'} A16[m, n] L16[k, m, m'])."""
+    if not _check_fwd_shapes("tril_sq_fwd", A16, L16):
+        return tril_sq_fwd_plain(A16, L16)
+    B16 = _fwd("tril_sq_fwd", "mgp_tril_fwd", torch.bfloat16, A16, L16)
     tril_sq_fwd.launches += 1
     return B16
+
+
+def tril_fwd_f32(A16, L16):
+    """B[k, n, m'] = sum_{m >= m'} A16[m, n] L16[k, m, m'] in f32."""
+    if not _check_fwd_shapes("tril_fwd_f32", A16, L16):
+        return tril_fwd_f32_plain(A16, L16)
+    B = _fwd("tril_fwd_f32", "mgp_tril_fwd_f32", torch.float32, A16, L16)
+    tril_fwd_f32.launches += 1
+    return B
 
 
 def _check_bwd_shapes(what, operand, X16, B16, G):
@@ -138,6 +168,7 @@ def tril_sq_da(L16, B16, G):
 
 
 tril_sq_fwd.launches = 0
+tril_fwd_f32.launches = 0
 tril_sq_dl.launches = 0
 tril_sq_da.launches = 0
 
@@ -169,3 +200,18 @@ def atl_sq_colsum(A, L):
     A [M, N], L [K, M, M] (lower triangle read) -> [K, N] fp32, with its
     gradient through the dL / dA kernels (dA returned as fp32)."""
     return _AtlSqColsum.apply(A, L)
+
+
+def atl_matmul(A, L):
+    """B = A^T tril(L) in f32 from bf16 operands: A [M, N], L [K, M, M]
+    (lower triangle read) -> [K, N, M] (pallas_tril.atl_matmul's forward:
+    both cast to bf16, fp32 accumulation, an f32 B).  Forward only: the
+    backward kernels (#6 _k_dl, #7 _k_da) are not ported, so this raises
+    while autograd records."""
+    if torch.is_grad_enabled() and (A.requires_grad or L.requires_grad):
+        raise NotImplementedError(
+            "atl_matmul: the backward of the f32 tril forward (kernels #6 "
+            "pallas_tril._k_dl and #7 _k_da) is not ported yet; call it "
+            "under torch.no_grad() or torch.inference_mode()")
+    return tril_fwd_f32(A.to(torch.bfloat16).contiguous(),
+                        L.to(torch.bfloat16).contiguous())

@@ -1,32 +1,42 @@
 """Adam with optax's arithmetic over a model's trainable raw parameters.
 
 The update is the one modulatedgps_tpu/training/fused_adam.py:173-178
-writes for every leaf, which is optax.adam's at its defaults:
+writes for every leaf, which is optax.adam's at its defaults
+(fused_adam.adam_update).  torch.optim.Adam divides by sqrt(v) / sqrt(c2)
+instead, which rounds differently.
 
-    m' = B1 m + (1 - B1) g
-    v' = B2 v + (1 - B2) g^2
-    p' = p - lr (m' c1) / (sqrt(v' c2) + EPS),   c = 1 / (1 - B^t).
-
-torch.optim.Adam divides by sqrt(v) / sqrt(c2) instead, which rounds
-differently.  Parameters whose ``requires_grad`` is False get no update
-(the JAX package masks their gradients to zero, which leaves them
-unchanged too).  A lower-triangular leaf keeps zeros above its diagonal:
-its gradient is zero there, so are m and v, and p moves by 0 / EPS.
+The raw tensor of every "tril" Parameter (the [K, M, M] q_sqrt leaves)
+goes through ``adam_tril_``: kernel #14 on the card, its plain version on
+the CPU, updating p, m and v in place on and below the diagonal only.  The
+upper triangle of such a leaf keeps its bits and its m and v stay 0 there.
+Tril-ness is the Parameter's transform, not the leaf's shape.  Every other
+leaf takes the elementwise update.  Parameters whose ``requires_grad`` is
+False get no update (the JAX package masks their gradients to zero, which
+leaves them unchanged too).  The bias corrections are computed on the host
+in double from the step count, so a step never waits on the card.
 """
 from __future__ import annotations
 
-from typing import Iterable
-
 import torch
+from torch import nn
+
+from ..params import Parameter
+from .fused_adam import B1, B2, adam_tril_, adam_update
 
 __all__ = ["Adam"]
 
-B1, B2, EPS = 0.9, 0.999, 1e-8
-
 
 class Adam:
-    def __init__(self, params: Iterable[torch.Tensor], lr: float):
-        self.params = [p for p in params if p.requires_grad]
+    """Adam over ``model``'s trainable raw parameters; ``names`` are their
+    names in ``model.named_parameters()``."""
+
+    def __init__(self, model: nn.Module, lr: float):
+        tril = {id(mod.raw) for mod in model.modules()
+                if isinstance(mod, Parameter) and mod.transform == "tril"}
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.tril = [id(p) in tril for p in self.params]
         self.lr = lr
         self.count = 0
         self.m = [torch.zeros_like(p) for p in self.params]
@@ -42,9 +52,10 @@ class Adam:
         self.count += 1
         c1 = 1.0 / (1.0 - B1 ** self.count)
         c2 = 1.0 / (1.0 - B2 ** self.count)
-        for p, m, v in zip(self.params, self.m, self.v):
-            g = p.grad
-            m.mul_(B1).add_(g, alpha=1.0 - B1)
-            v.mul_(B2).addcmul_(g, g, value=1.0 - B2)
-            denom = (v * c2).sqrt_().add_(EPS)
-            p.sub_(self.lr * (m * c1) / denom)
+        for p, m, v, tril in zip(self.params, self.m, self.v, self.tril):
+            if tril:
+                adam_tril_(p, p.grad, m, v, self.lr, c1, c2)
+                continue
+            for old, new in zip((p, m, v),
+                                adam_update(p, p.grad, m, v, self.lr, c1, c2)):
+                old.copy_(new)

@@ -24,8 +24,9 @@ from modulatedgps_tpu.utils import shapes as jshapes
 
 import modulatedgps_tpu_torch as pt
 from modulatedgps_tpu_torch import _native, config, params
-from modulatedgps_tpu_torch.ops import (kxz_kernel, tril_kernel, trimm_kernel,
-                                        trsm_kernel)
+from modulatedgps_tpu_torch.ops import (kl_kernel, kxz_kernel, tril_kernel,
+                                        trimm_kernel, trsm_kernel)
+from modulatedgps_tpu_torch.training import fused_adam
 from modulatedgps_tpu_torch.utils.shapes import ShapeChecker, ShapeError
 
 REPO = Path(__file__).resolve().parents[1]
@@ -64,8 +65,9 @@ def test_cpu_tensors_launch_nothing():
     assert _native._lib is None
 
 
-KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
-           "tri_tt_matmul", "tri_nt_matmul")
+KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_fwd_f32", "tril_sq_dl",
+           "tril_sq_da", "tri_tt_matmul", "tri_nt_matmul", "kl_sq_logdiag",
+           "kl_bwd_scale", "adam_tril_")
 
 
 def test_cpu_train_step_launches_nothing():
@@ -82,7 +84,7 @@ def test_cpu_train_step_launches_nothing():
         model.pred_layer.q_sqrt.raw.add_(
             0.05 * torch.tril(torch.randn(K, M, M)))
     pt.reset_launch_counts()
-    step = pt.make_train_step(pt.Adam(model.parameters(), 1e-2))
+    step = pt.make_train_step(pt.Adam(model, 1e-2))
     loss = step(model, torch.Generator().manual_seed(0),
                 torch.as_tensor(rng.uniform(-2, 2, size=(N, D)),
                                 dtype=torch.float32),
@@ -118,11 +120,24 @@ def _grad(*shape, dtype=torch.float32):
 
 @pytest.mark.parametrize("case", ["kxz", "trsm_lower", "tril_sq_fwd",
                                   "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
-                                  "tri_nt_matmul"])
+                                  "tri_nt_matmul", "kl_sq_logdiag",
+                                  "kl_bwd_scale", "adam_tril_",
+                                  "tril_fwd_f32"])
 def test_cuda_argument_checks_refuse_grad(case):
     bf16 = torch.bfloat16
     with pytest.raises(NotImplementedError, match="autograd Function"):
-        if case == "kxz":
+        if case == "kl_sq_logdiag":
+            kl_kernel.check_launch_args(case, _grad(2, 4, 4))
+        elif case == "kl_bwd_scale":
+            kl_kernel.check_launch_args(case, torch.zeros(2, 4, 4), _grad(1))
+        elif case == "adam_tril_":
+            z = torch.zeros(2, 4, 4)
+            fused_adam.check_launch_args(_grad(2, 4, 4), z, z, z)
+        elif case == "tril_fwd_f32":
+            tril_kernel.check_launch_args(
+                torch.zeros(4, 3, dtype=bf16, requires_grad=True),
+                torch.zeros(1, 4, 4, dtype=bf16), case)
+        elif case == "kxz":
             kxz_kernel.check_launch_args(
                 torch.zeros(4, 2, requires_grad=True), torch.zeros(3, 2),
                 torch.tensor(1.0), torch.tensor(1.0))
@@ -153,11 +168,24 @@ def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
 
 @pytest.mark.parametrize("case", ["kxz", "kxz_variance", "trsm_lower",
                                   "trsm_rhs", "tril_sq_fwd", "tril_sq_bwd_G",
-                                  "tril_sq_bwd_B16", "trimm"])
+                                  "tril_sq_bwd_B16", "trimm", "kl_sq_logdiag",
+                                  "kl_bwd_scale_g", "adam_tril_",
+                                  "tril_fwd_f32"])
 def test_cuda_argument_checks_refuse_dtype(case):
     f64 = torch.float64
     with pytest.raises(TypeError):
-        if case == "kxz":
+        if case == "kl_sq_logdiag":   # the f64 KL keeps the dense form
+            kl_kernel.check_launch_args(case, torch.zeros(2, 4, 4, dtype=f64))
+        elif case == "kl_bwd_scale_g":
+            kl_kernel.check_launch_args("kl_bwd_scale", torch.zeros(2, 4, 4),
+                                        torch.tensor(1.0, dtype=f64))
+        elif case == "adam_tril_":
+            z = torch.zeros(2, 4, 4)
+            fused_adam.check_launch_args(z, z.double(), z, z)
+        elif case == "tril_fwd_f32":   # bf16 operands, cast by atl_matmul
+            tril_kernel.check_launch_args(torch.zeros(4, 3),
+                                          torch.zeros(1, 4, 4), case)
+        elif case == "kxz":
             kxz_kernel.check_launch_args(torch.zeros(4, 2, dtype=f64),
                                          torch.zeros(3, 2, dtype=f64),
                                          torch.tensor(1.0), torch.tensor(1.0))
@@ -196,6 +224,77 @@ def test_cuda_argument_checks_refuse_layout_and_shape():
     ls, var = kxz_kernel.check_launch_args(torch.zeros(4, 2), torch.zeros(3, 2),
                                            torch.tensor(0.5), torch.tensor(2.0))
     assert ls.tolist() == [0.5, 0.5] and var.tolist() == [2.0]
+
+
+def test_new_wrappers_refuse_layout_and_shape():
+    with pytest.raises(ValueError, match="contiguous"):
+        kl_kernel.check_launch_args("kl_sq_logdiag",
+                                    torch.zeros(2, 4, 4).transpose(1, 2))
+    with pytest.raises(ValueError, match="one value"):
+        kl_kernel.check_launch_args("kl_bwd_scale", torch.zeros(2, 4, 4),
+                                    torch.zeros(2))
+    for fn in (kl_kernel.kl_sq_logdiag,
+               lambda L: kl_kernel.kl_bwd_scale(L, torch.tensor(1.0))):
+        with pytest.raises(ValueError, match=r"\[K, M, M\]"):
+            fn(torch.zeros(2, 4, 5))
+    z = torch.zeros(2, 4, 4)
+    with pytest.raises(ValueError, match="shape"):
+        fused_adam.check_launch_args(z, torch.zeros(2, 4, 3), z, z)
+    with pytest.raises(ValueError, match=r"\[K, M, M\]"):
+        fused_adam.check_launch_args(torch.zeros(4, 4), z, z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_adam.check_launch_args(z, z, z.transpose(1, 2), z)
+    with pytest.raises(ValueError):
+        tril_kernel.tril_fwd_f32(torch.zeros(4, 3, dtype=torch.bfloat16),
+                                 torch.zeros(1, 5, 5, dtype=torch.bfloat16))
+
+
+def test_atl_matmul_refuses_autograd():
+    """The f32 tril forward has no backward yet (kernels #6/#7): it raises
+    while autograd records, on the CPU as on the card, and runs without."""
+    A = torch.randn(5, 3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="#6.*#7"):
+        tril_kernel.atl_matmul(A, torch.randn(2, 5, 5))
+    with torch.no_grad():
+        assert tril_kernel.atl_matmul(A, torch.randn(2, 5, 5)).shape == (2, 3, 5)
+
+
+def test_cpu_steps_keep_tril_leaves_lower_triangular():
+    """Three f32 CPU steps through the new routes (the KL's kl_sq_logdiag /
+    kl_bwd_scale, Adam's adam_tril_, each on its plain version): q_sqrt and
+    its Adam moments stay exactly 0 above the diagonal."""
+    import unittest.mock as mock
+    from modulatedgps_tpu_torch.ops import kl as kl_module
+    from modulatedgps_tpu_torch.training import adam as adam_module
+    rng = np.random.default_rng(1)
+    M, K, D, N = 16, 2, 2, 24
+    layer = lambda: pt.SVGP.create(
+        pt.SquaredExponential.create(0.5, 0.7, device="cpu"),
+        rng.normal(size=(M, D)), K, device="cpu")
+    model = pt.SMGP(pt.Gaussian.create(0.5, D=K, device="cpu"), layer(),
+                    layer(), K=K, num_samples=3, num_data=100)
+    with torch.no_grad():
+        model.pred_layer.q_sqrt.raw.add_(
+            0.05 * torch.tril(torch.randn(K, M, M)))
+    opt = pt.Adam(model, 1e-2)
+    step = pt.make_train_step(opt)
+    X = torch.as_tensor(rng.uniform(-2, 2, size=(N, D)), dtype=torch.float32)
+    Y = torch.as_tensor(rng.normal(size=(N, 1)), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    with mock.patch.object(kl_module, "kl_sq_logdiag",
+                           wraps=kl_module.kl_sq_logdiag) as fwd, \
+            mock.patch.object(kl_module, "kl_bwd_scale",
+                              wraps=kl_module.kl_bwd_scale) as bwd, \
+            mock.patch.object(adam_module, "adam_tril_",
+                              wraps=adam_module.adam_tril_) as upd:
+        for _ in range(3):
+            assert bool(torch.isfinite(step(model, gen, X, Y)))
+    assert fwd.call_count == bwd.call_count == upd.call_count == 6
+    for p, m, v, tril in zip(opt.params, opt.m, opt.v, opt.tril):
+        if tril:
+            for t in (p, m, v):
+                assert not torch.triu(t, 1).any()
+            assert m.abs().sum() > 0
 
 
 def test_serving_refuses_grad_path_only_on_cuda():

@@ -100,11 +100,16 @@ def test_base_conditional_matches_jax_f64(q_sqrt_kind):
 
 
 def test_base_conditional_refuses_unported_forms():
+    """The unwhitened conditional, and the gradient of the f32 joint
+    covariance (the backward kernels of the f32 tril forward)."""
     z = torch.zeros(2, 2, dtype=torch.float64)
-    for kw in ({"white": False}, {"full_cov": True}):
-        with pytest.raises(NotImplementedError):
-            tc.base_conditional(z, torch.eye(2, dtype=torch.float64),
-                                torch.ones(2, dtype=torch.float64), z, **kw)
+    with pytest.raises(NotImplementedError):
+        tc.base_conditional(z, torch.eye(2, dtype=torch.float64),
+                            torch.ones(2, dtype=torch.float64), z, white=False)
+    q_sqrt = torch.eye(2).expand(2, 2, 2).clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="#6"):
+        tc.base_conditional(torch.zeros(2, 3), torch.eye(2), torch.eye(3),
+                            torch.zeros(2, 2), q_sqrt=q_sqrt, full_cov=True)
 
 
 @pytest.mark.parametrize("full_cov", [False, True])
