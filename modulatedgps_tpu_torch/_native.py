@@ -34,10 +34,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_dl_w": (_P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_da_w": (_P, _P, _P, _I, _I, _I, _P),
     "mgp_tri_tt": (_P, _P, _P, _I, _I, _P),
     "mgp_tri_nt": (_P, _P, _P, _I, _P),
     "mgp_kl_fwd": (_P, _P, _P, _I, _I, _P),
@@ -138,15 +141,16 @@ def require(what: str, t, dtype, device) -> None:
     A tensor that requires grad is refused while autograd records (grad
     mode on): a raw launcher records no gradient, so a caller that wants
     one goes through the autograd Function around it (``kxz``,
-    ``atl_sq_colsum``, ``whiten_solve``), whose forward and backward launch
-    with grad mode off.  Under torch.inference_mode() or torch.no_grad()
-    nothing is recorded, so a trainable parameter may feed them."""
+    ``atl_sq_colsum``, ``atl_matmul``, ``whiten_solve``, ``solve_lower``,
+    ``cholesky``), whose forward and backward launch with grad mode off.
+    Under torch.inference_mode() or torch.no_grad() nothing is recorded, so
+    a trainable parameter may feed them."""
     import torch
     if t.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             f"{what}: the raw CUDA launcher records no gradient; call it "
-            "through its autograd Function (kxz, atl_sq_colsum, "
-            "whiten_solve) or under torch.no_grad()")
+            "through its autograd Function (kxz, atl_sq_colsum, atl_matmul, "
+            "whiten_solve, solve_lower, cholesky) or under torch.no_grad()")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.device != device:

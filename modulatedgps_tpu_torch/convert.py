@@ -5,8 +5,9 @@ numpy arrays keyed by their pytree path, for example
 ``pred_layer.q_sqrt.raw``, and returns the port's SMGP; ``smgp_to_numpy``
 is its inverse.  The dict is what ``jax.tree_util.tree_flatten_with_path``
 gives for a ``modulatedgps_tpu.models.SMGP`` with a Gaussian likelihood
-and two whitened SquaredExponential SVGP layers (the kernel type is not
-among the leaves); this module itself never imports jax.
+and two SquaredExponential SVGP layers (neither the kernel type nor
+``whiten``, a static field in JAX, is among the leaves: ``whiten`` is
+passed); this module itself never imports jax.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from .params import Parameter
 __all__ = ["smgp_from_numpy", "smgp_to_numpy"]
 
 
-def _layer(raw, prefix: str, jitter, dtype, device) -> SVGP:
+def _layer(raw, prefix: str, whiten, jitter, dtype, device) -> SVGP:
     def get(name):
         return torch.tensor(np.asarray(raw[f"{prefix}.{name}.raw"]),
                             dtype=dtype, device=device)
@@ -35,26 +36,28 @@ def _layer(raw, prefix: str, jitter, dtype, device) -> SVGP:
     q_sqrt = get("q_sqrt")
     return SVGP(kernel, Parameter(get("Z")), Parameter(get("q_mu")),
                 Parameter(q_sqrt, "tril" if q_sqrt.ndim == 3 else "positive"),
-                jitter=jitter)
+                whiten=whiten, jitter=jitter)
 
 
 def smgp_from_numpy(arrays: Mapping[str, np.ndarray], *, K: int,
                     num_samples: int, num_data: int | None,
                     temperature: float, device: torch.device | str,
-                    dtype: torch.dtype, jitter: float | None = None) -> SMGP:
+                    dtype: torch.dtype, jitter: float | None = None,
+                    whiten: bool = True) -> SMGP:
     """The port's SMGP from raw leaves keyed ``likelihood.variance.raw``,
     ``{pred_layer,assign_layer}.{kernel.variance,kernel.lengthscales,Z,q_mu,
     q_sqrt}.raw`` (a leading '.' in a key is ignored).
 
     ``jitter`` is the layers' Kuu jitter (None: the dtype's default); a
     whitened model is evaluated at the jitter it was trained with.
+    ``whiten`` is both layers' parameterization.
     """
     raw = {key.lstrip("."): value for key, value in arrays.items()}
     lik = Gaussian(Parameter(torch.tensor(
         np.asarray(raw["likelihood.variance.raw"]), dtype=dtype,
         device=device), "positive"))
-    pred = _layer(raw, "pred_layer", jitter, dtype, device)
-    assign = _layer(raw, "assign_layer", jitter, dtype, device)
+    pred = _layer(raw, "pred_layer", whiten, jitter, dtype, device)
+    assign = _layer(raw, "assign_layer", whiten, jitter, dtype, device)
     return SMGP(lik, pred, assign, K=K, num_samples=num_samples,
                 num_data=num_data, temperature=temperature)
 

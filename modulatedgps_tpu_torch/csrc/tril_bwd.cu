@@ -1,13 +1,18 @@
-// Backward of the conditional's q_sqrt variance term extra[k, n] =
-// sum_m' B16[k, n, m']^2, B16 = bf16(A^T tril L_k), with the cotangent
-// scaling fused into the operand staging:
+// Backward of B = A^T tril L_k, the conditional's q_sqrt term:
 //
-//   W_k[n, m']   = bf16( f32(B16[k, n, m']) * G[k, n] ),   G = 2 * dextra
 //   dL[k, m, m'] = sum_n A16[m, n] W_k[n, m']          (m >= m', else 0)
 //   dA[m, n]     = sum_k sum_{m' <= m} L16[k, m, m'] W_k[n, m']
 //
-// Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_dl_g (_dl_pallas_g) and
-// _k_da_g (_da_pallas_g).
+// with W read in one of two ways (the kernels are templated on it):
+//
+//   scaled: the square-sum extra[k, n] = sum_m' B16[k, n, m']^2 with
+//     B16 = bf16(B), whose cotangent scaling is fused into the staging,
+//     W_k[n, m'] = bf16( f32(B16[k, n, m']) * G[k, n] ),  G = 2 * dextra;
+//     replaces modulatedgps_tpu/ops/pallas_tril.py:_k_dl_g (_dl_pallas_g)
+//     and _k_da_g (_da_pallas_g);
+//   direct: W16 = bf16(dB), the cotangent of the f32 B of the joint
+//     covariance, read from memory; replaces pallas_tril.py:_k_dl
+//     (_dl_pallas) and _k_da (_da_pallas), atl_matmul's backward.
 //
 // Bound on the H100: tensor-core math.  At M=4096, N=8192, K=8 each kernel
 // does the lower triangle's K*N*M^2/2 = 5.5e11 multiply-adds against ~1 GB
@@ -16,10 +21,10 @@
 // bf16 operands, f32 accumulation; never bf16 accumulation or TF32).  W is
 // formed in the rounding order of the TPU kernels (f32 product, one bf16
 // rounding) while each B16 tile is staged into shared memory, so no W array
-// ever reaches device memory.  Loads of the next step's tiles are issued
-// into registers before the current step's MMAs; the scaling and masking
-// happen when the registers are stored to shared memory, so they never wait
-// on a load in flight.
+// ever reaches device memory (the direct form stages W16 as read).  Loads
+// of the next step's tiles are started into registers before the current
+// step's MMAs; the scaling and masking happen when the registers are stored
+// to shared memory, so they never wait on a load in flight.
 //
 // tril_dl: one block per (m-tile, m'-tile, k), contracting over all N.  A
 //   block above the diagonal (m-tile < m'-tile) writes its tile as zeros and
@@ -65,6 +70,14 @@ __device__ __forceinline__ uint4 scale8(uint4 raw, float g) {
   return p.u;
 }
 
+// The staged W: B16 scaled by g (kScaled), or W16 as read.
+template <bool kScaled>
+__device__ __forceinline__ uint4 w8(uint4 raw, float g) {
+  if constexpr (kScaled) return scale8(raw, g);
+  return raw;
+}
+
+template <bool kScaled>
 __global__ void __launch_bounds__(NTHR)
 tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
                const __nv_bfloat16* __restrict__ B,
@@ -82,7 +95,6 @@ tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
     return;
   }
   const __nv_bfloat16* Bk = B + (size_t)k * N * M;
-  const float* Gk = G + (size_t)k * N;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int wr = warp / (BT / WC);
@@ -97,7 +109,7 @@ tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
     for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   uint4 ra[CH], rw[CH];
-  float rg[CH];
+  float rg[CH] = {};
   auto fetch = [&](int n0) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -105,7 +117,7 @@ tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
       ra[c] = load_row8(A, m0 + e / (BK / 8), M, n0 + (e % (BK / 8)) * 8, N, a_vec);
       const int n = n0 + e / (BT / 8);
       rw[c] = load_row8(Bk, n, N, p0 + (e % (BT / 8)) * 8, M, b_vec);
-      rg[c] = n < N ? Gk[n] : 0.f;
+      if constexpr (kScaled) rg[c] = n < N ? G[(size_t)k * N + n] : 0.f;
     }
   };
 
@@ -116,7 +128,7 @@ tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
       const int e = tid + c * NTHR;
       *reinterpret_cast<uint4*>(&As[(e / (BK / 8)) * LDT + (e % (BK / 8)) * 8]) = ra[c];
       *reinterpret_cast<uint4*>(&Ws[(e / (BT / 8)) * LDW + (e % (BT / 8)) * 8]) =
-          scale8(rw[c], rg[c]);
+          w8<kScaled>(rw[c], rg[c]);
     }
     __syncthreads();
     if (n0 + BK < N) fetch(n0 + BK);
@@ -141,6 +153,7 @@ tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
                  true, lane);
 }
 
+template <bool kScaled>
 __global__ void __launch_bounds__(NTHR)
 tril_da_kernel(const __nv_bfloat16* __restrict__ L,
                const __nv_bfloat16* __restrict__ B,
@@ -168,7 +181,7 @@ tril_da_kernel(const __nv_bfloat16* __restrict__ L,
     for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   uint4 rl[CH], rw[CH];
-  float rg[CH];
+  float rg[CH] = {};
   auto fetch = [&](int s) {
     const int k = s / per_k, p0 = (s % per_k) * BK;
     const __nv_bfloat16* Lk = L + (size_t)k * M * M;
@@ -179,7 +192,7 @@ tril_da_kernel(const __nv_bfloat16* __restrict__ L,
       const int r = e / (BK / 8), c8 = (e % (BK / 8)) * 8;
       rl[c] = load_row8(Lk, m0 + r, M, p0 + c8, M, vec);
       rw[c] = load_row8(Bk, n0 + r, N, p0 + c8, M, vec);
-      rg[c] = n0 + r < N ? G[(size_t)k * N + n0 + r] : 0.f;
+      if constexpr (kScaled) rg[c] = n0 + r < N ? G[(size_t)k * N + n0 + r] : 0.f;
     }
   };
 
@@ -196,7 +209,7 @@ tril_da_kernel(const __nv_bfloat16* __restrict__ L,
       for (int q = 0; q < 8; ++q)
         if (m0 + r < p0 + c8 + q) p.s[q] = 0;   // strictly upper
       *reinterpret_cast<uint4*>(&Ls[r * LDT + c8]) = p.u;
-      *reinterpret_cast<uint4*>(&Ws[r * LDT + c8]) = scale8(rw[c], rg[c]);
+      *reinterpret_cast<uint4*>(&Ws[r * LDT + c8]) = w8<kScaled>(rw[c], rg[c]);
     }
     __syncthreads();
     if (s + 1 < steps) fetch(s + 1);
@@ -222,31 +235,57 @@ tril_da_kernel(const __nv_bfloat16* __restrict__ L,
                  false, lane);
 }
 
-}  // namespace
-
-// A16 [M, N] bf16, B16 [K, N, M] bf16, G [K, N] f32 -> dL [K, M, M] f32,
-// exactly lower-triangular.
-extern "C" int mgp_tril_dl(const void* A, const void* B, const void* G, void* dL,
-                           int M, int N, int K, void* stream) {
+template <bool kScaled>
+int launch_dl(const void* A, const void* B, const void* G, void* dL, int M,
+              int N, int K, void* stream) {
   if (M > 0 && N > 0 && K > 0) {
     const int nt = (M + BT - 1) / BT;
     dim3 grid(nt, nt, K);
-    tril_dl_kernel<<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
+    tril_dl_kernel<kScaled><<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
         static_cast<const float*>(G), static_cast<float*>(dL), M, N);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// L16 [K, M, M] bf16 (upper triangle ignored), B16 [K, N, M] bf16,
-// G [K, N] f32 -> dA [M, N] f32.
-extern "C" int mgp_tril_da(const void* L, const void* B, const void* G, void* dA,
-                           int M, int N, int K, void* stream) {
+template <bool kScaled>
+int launch_da(const void* L, const void* B, const void* G, void* dA, int M,
+              int N, int K, void* stream) {
   if (M > 0 && N > 0 && K > 0) {
     dim3 grid((N + BT - 1) / BT, (M + BT - 1) / BT);
-    tril_da_kernel<<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
+    tril_da_kernel<kScaled><<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(L), static_cast<const __nv_bfloat16*>(B),
         static_cast<const float*>(G), static_cast<float*>(dA), M, N, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// A16 [M, N] bf16, B16 [K, N, M] bf16, G [K, N] f32 -> dL [K, M, M] f32,
+// exactly lower-triangular.
+extern "C" int mgp_tril_dl(const void* A, const void* B, const void* G, void* dL,
+                           int M, int N, int K, void* stream) {
+  return launch_dl<true>(A, B, G, dL, M, N, K, stream);
+}
+
+// L16 [K, M, M] bf16 (upper triangle ignored), B16 [K, N, M] bf16,
+// G [K, N] f32 -> dA [M, N] f32.
+extern "C" int mgp_tril_da(const void* L, const void* B, const void* G, void* dA,
+                           int M, int N, int K, void* stream) {
+  return launch_da<true>(L, B, G, dA, M, N, K, stream);
+}
+
+// A16 [M, N] bf16, W16 [K, N, M] bf16 -> dL [K, M, M] f32, exactly
+// lower-triangular.
+extern "C" int mgp_tril_dl_w(const void* A, const void* W, void* dL, int M,
+                             int N, int K, void* stream) {
+  return launch_dl<false>(A, W, nullptr, dL, M, N, K, stream);
+}
+
+// L16 [K, M, M] bf16 (upper triangle ignored), W16 [K, N, M] bf16 -> dA [M, N]
+// f32.
+extern "C" int mgp_tril_da_w(const void* L, const void* W, void* dA, int M,
+                             int N, int K, void* stream) {
+  return launch_da<false>(L, W, nullptr, dA, M, N, K, stream);
 }

@@ -1,7 +1,14 @@
-// Blocked forward substitution X = L^-1 B for a lower-triangular L.
+// Blocked substitution for a lower-triangular L: forward, X = L^-1 B, and
+// backward, X = L^-T B.
 //
 // Replaces modulatedgps_tpu/ops/pallas_linalg.py:_trsm_kernel (with its
-// _chol_diag_inverses and the 512-row panel loop of _trsm_large_impl).
+// _chol_diag_inverses and the 512-row panel loop of _trsm_large_impl) and
+// _trsm_t_kernel (the transposed solve: the unwhitened conditional's second
+// solve and the pullback of every forward solve).
+//
+// With a general B (Nb = 8192 or 32768 columns on the unwhitened path) there
+// are hundreds of strips and the solve is bound by the fp32 FMA rate from
+// shared memory (M^2 Nb / 2 multiply-adds), not by the critical walk.
 //
 // Bound on the H100: the substitution is sequential over block rows, so the
 // critical path is one column strip's walk down the matrix (about
@@ -19,6 +26,9 @@
 //       registers while the current one is multiplied, hiding L2 latency.
 //       With B = I (unit_rhs, B is then not read) a strip starts at the
 //       block row holding its first column: the rows of L^-1 above are zero.
+//       The transposed solve is the same kernel walking the block rows from
+//       the last up (solve_kernel<true>); it reuses (a), since the diagonal
+//       blocks of L^T have the inverses Inv_kk^T.
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,6 +65,13 @@ diag_inv_kernel(const float* __restrict__ L, float* __restrict__ Inv, int M) {
   for (int i = 0; i < BS; ++i) out[i * BS + j] = Xs[i][j];
 }
 
+// kTrans = false: L X = B, block rows in order, acc = B_k - sum_{j<k} L_kj X_j,
+// X_k = Inv_kk acc.  kTrans = true: L^T X = B, block rows in reverse,
+// acc = B_k - sum_{j>k} L_jk^T X_j, X_k = Inv_kk^T acc (the diagonal blocks of
+// L^T have the inverses Inv_kk^T).  The transposed solve reads L_jk and
+// Inv_kk row by row from device memory (coalesced) and stores them
+// transposed into shared memory, so the product loop is the same for both.
+template <bool kTrans>
 __global__ void __launch_bounds__(NT)
 solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
              const float* __restrict__ B, float* __restrict__ X, int M, int Nb,
@@ -67,30 +84,44 @@ solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
   const int col = c0 + tx;
   const bool col_ok = col < Nb;
   const int nblk = (M + BS - 1) / BS;
-  const int kstart = unit_rhs ? c0 / BS : 0;
+  const int kstart = (!kTrans && unit_rhs) ? c0 / BS : 0;
 
   if (col_ok)
     for (int r = ty; r < min(kstart * BS, M); r += RY) X[(size_t)r * Nb + col] = 0.f;
 
-  // Registers for the next (L_kj, X_j) tile pair.  j < k, so the L tile
-  // lies wholly below the diagonal and its columns are inside M.
+  // Element e of a [BS, BS] tile read row-major, stored as Ls[e / BS][e % BS]
+  // or, transposed, as Ls[e % BS][e / BS] (stride BS + 1: no bank conflicts).
+  auto stage = [&](int e, float v) {
+    if (kTrans) Ls[e % BS][e / BS] = v;
+    else Ls[e / BS][e % BS] = v;
+  };
+
+  // Registers for the next (L tile, X_j) pair: L_kj (forward, j < k) or
+  // L_jk (transposed, j > k).  The tile's columns are inside M (they belong
+  // to the smaller of j, k, never the last block); its rows, and X_j's, may
+  // run past M in the transposed solve's last block row and read as 0.
   float lr[LPT], xr[XPT];
   auto fetch = [&](int k, int j) {
+    const int rb = kTrans ? j : k, cb = kTrans ? k : j;
 #pragma unroll
     for (int q = 0; q < LPT; ++q) {
       const int e = tid + q * NT;
-      const int r = k * BS + e / BS;
-      lr[q] = (r < M) ? L[(size_t)r * M + j * BS + e % BS] : 0.f;
+      const int r = rb * BS + e / BS;
+      lr[q] = (r < M) ? L[(size_t)r * M + cb * BS + e % BS] : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < XPT; ++q) {
       const int e = tid + q * NT;
       const int c = c0 + e % TW;
-      xr[q] = (c < Nb) ? X[(size_t)(j * BS + e / TW) * Nb + c] : 0.f;
+      const int r = j * BS + e / TW;
+      xr[q] = (c < Nb && r < M) ? X[(size_t)r * Nb + c] : 0.f;
     }
   };
 
-  for (int k = kstart; k < nblk; ++k) {
+  for (int s = 0; s < nblk - kstart; ++s) {
+    const int k = kTrans ? nblk - 1 - s : kstart + s;
+    const int jlo = kTrans ? k + 1 : kstart;   // the substituted block rows
+    const int jhi = kTrans ? nblk : k;
     float acc[RR];
 #pragma unroll
     for (int i = 0; i < RR; ++i) {
@@ -98,20 +129,17 @@ solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
       if (unit_rhs) acc[i] = (r == col) ? 1.f : 0.f;
       else acc[i] = (r < M && col_ok) ? B[(size_t)r * Nb + col] : 0.f;
     }
-    if (kstart < k) fetch(k, kstart);
-    for (int j = kstart; j < k; ++j) {
+    if (jlo < jhi) fetch(k, jlo);
+    for (int j = jlo; j < jhi; ++j) {
 #pragma unroll
-      for (int q = 0; q < LPT; ++q) {
-        const int e = tid + q * NT;
-        Ls[e / BS][e % BS] = lr[q];
-      }
+      for (int q = 0; q < LPT; ++q) stage(tid + q * NT, lr[q]);
 #pragma unroll
       for (int q = 0; q < XPT; ++q) {
         const int e = tid + q * NT;
         Xs[e / TW][e % TW] = xr[q];
       }
       __syncthreads();
-      if (j + 1 < k) fetch(k, j + 1);
+      if (j + 1 < jhi) fetch(k, j + 1);
 #pragma unroll 16
       for (int p = 0; p < BS; ++p) {
         float xv = Xs[p][tx];
@@ -120,15 +148,12 @@ solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
       }
       __syncthreads();
     }
-    // X_k = Inv_kk acc
+    // X_k = Inv_kk acc (forward) or Inv_kk^T acc (transposed)
 #pragma unroll
     for (int i = 0; i < RR; ++i) Xs[ty + i * RY][tx] = acc[i];
     const float* inv = Inv + (size_t)k * BS * BS;
 #pragma unroll
-    for (int q = 0; q < LPT; ++q) {
-      const int e = tid + q * NT;
-      Ls[e / BS][e % BS] = inv[e];
-    }
+    for (int q = 0; q < LPT; ++q) stage(tid + q * NT, inv[tid + q * NT]);
     __syncthreads();
     float out[RR];
 #pragma unroll
@@ -162,9 +187,25 @@ extern "C" int mgp_trsm_lower(const void* L, void* inv, const void* B, void* X,
     const int nblk = (M + BS - 1) / BS;
     diag_inv_kernel<<<nblk, BS, 0, s>>>(static_cast<const float*>(L),
                                         static_cast<float*>(inv), M);
-    solve_kernel<<<(Nb + TW - 1) / TW, NT, 0, s>>>(
+    solve_kernel<false><<<(Nb + TW - 1) / TW, NT, 0, s>>>(
         static_cast<const float*>(L), static_cast<const float*>(inv),
         static_cast<const float*>(B), static_cast<float*>(X), M, Nb, unit_rhs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X = L^-T B: L [M, M] lower (upper triangle ignored), B and X [M, Nb], inv
+// scratch [ceil(M / 64), 64, 64]; all fp32 on the device.
+extern "C" int mgp_trsm_lower_t(const void* L, void* inv, const void* B, void* X,
+                                int M, int Nb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M > 0 && Nb > 0) {
+    const int nblk = (M + BS - 1) / BS;
+    diag_inv_kernel<<<nblk, BS, 0, s>>>(static_cast<const float*>(L),
+                                        static_cast<float*>(inv), M);
+    solve_kernel<true><<<(Nb + TW - 1) / TW, NT, 0, s>>>(
+        static_cast<const float*>(L), static_cast<const float*>(inv),
+        static_cast<const float*>(B), static_cast<float*>(X), M, Nb, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

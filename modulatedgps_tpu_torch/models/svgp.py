@@ -1,11 +1,12 @@
-"""Sparse variational GP layer (inducing points, whitened posterior).
+"""Sparse variational GP layer (inducing points, whitened or not).
 
-Mirrors modulatedgps_tpu/models/svgp.py for whitened layers: ``create``,
-``kuu``, ``predict_f`` (marginal or joint), ``predict_f_samples`` and
-``prior_kl``.  Kmn is built as
-kernel.K(Z, Xnew) and Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu
-[M, K], q_sqrt tril [K, M, M] (init: K stacked identities) or diagonal
-[M, K].  ``create`` puts the state on the card unless given a device.
+Mirrors modulatedgps_tpu/models/svgp.py: ``create``, ``kuu``, ``predict_f``
+(marginal or joint, over [..., N, D] inputs), ``predict_f_samples`` and
+``prior_kl``.  Kmn is built as kernel.K(Z, Xnew) and Kmm = K(Z, Z) +
+jitter I.  State: Z [M, D], q_mu [M, K], q_sqrt tril [K, M, M] (init: K
+stacked identities) or diagonal [M, K]; with ``whiten`` (the default) q(u)
+is over the whitened u' = chol(Kmm)^-1 u, without it over u itself.
+``create`` puts the state on the card unless given a device.
 """
 from __future__ import annotations
 
@@ -28,11 +29,6 @@ class SVGP(nn.Module):
                  q_sqrt: Parameter, *, whiten: bool = True,
                  jitter: float | None = None):
         super().__init__()
-        if not whiten:
-            raise NotImplementedError(
-                "the port serves whitened layers; the unwhitened conditional "
-                "waits for the pullback of the TRSM inverse and the "
-                "unwhitened KL")
         self.kernel = kernel
         self.Z = Z
         self.q_mu = q_mu
@@ -44,7 +40,8 @@ class SVGP(nn.Module):
 
     @classmethod
     def create(cls, kernel: Kernel, inducing_points, num_latent_gps: int = 1,
-               *, q_diag: bool = False, jitter: float | None = None,
+               *, whiten: bool = True, q_diag: bool = False,
+               jitter: float | None = None,
                dtype: torch.dtype = torch.float32,
                device: torch.device | str = "cuda") -> "SVGP":
         Z = torch.as_tensor(inducing_points, dtype=dtype, device=device)
@@ -56,7 +53,8 @@ class SVGP(nn.Module):
         else:
             eye = torch.eye(M, dtype=dtype, device=device)
             q_sqrt = Parameter(eye.expand(K, M, M).clone(), "tril")
-        return cls(kernel, Parameter(Z), Parameter(q_mu), q_sqrt, jitter=jitter)
+        return cls(kernel, Parameter(Z), Parameter(q_mu), q_sqrt,
+                   whiten=whiten, jitter=jitter)
 
     def kuu(self) -> torch.Tensor:
         """K(Z, Z) + jitter I."""
@@ -67,18 +65,32 @@ class SVGP(nn.Module):
 
     def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False,
                   full_output_cov: bool = False):
-        """Posterior q(f(Xnew)) at Xnew [N, D]: the mean [N, K] and the
-        marginal variances [N, K], or with ``full_cov`` the covariance over
-        the N points per latent, [K, N, N]."""
+        """Posterior q(f(Xnew)) at Xnew [..., N, D]: the mean [..., N, K]
+        and the marginal variances [..., N, K], or with ``full_cov`` the
+        covariance over the N points per latent, [..., K, N, N].
+
+        Leading dimensions are independent batches, as JAX's vmap makes
+        them: marginals are taken on all points at once, a joint
+        covariance per batch."""
         chk = ShapeChecker()
         chk.check(self.Z.value, "M D", "Z")
-        chk.check(Xnew, "N D", "Xnew")
+        chk.check(Xnew, "... N D", "Xnew")
+        if Xnew.ndim > 2 and full_cov:
+            outs = [self.predict_f(x, full_cov=True,
+                                   full_output_cov=full_output_cov)
+                    for x in Xnew]
+            return tuple(torch.stack(t) for t in zip(*outs))
+        lead = Xnew.shape[:-2]
+        Xnew = Xnew.reshape(-1, Xnew.shape[-1])
         Kmm = self.kuu()
         Kmn = self.kernel.K(self.Z.value, Xnew)
         Knn = self.kernel(Xnew, full_cov=full_cov)
         fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
                                        q_sqrt=self.q_sqrt.value,
-                                       full_cov=full_cov, white=True)
+                                       full_cov=full_cov, white=self.whiten)
+        if lead:
+            fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
+            fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
         return fmean, expand_independent_outputs(fvar, full_cov,
                                                  full_output_cov)
 
@@ -107,6 +119,8 @@ class SVGP(nn.Module):
         return mean[None] + f.permute(2, 1, 0)                   # [S, N, K]
 
     def prior_kl(self) -> torch.Tensor:
-        """KL[q(u) || N(0, I)] (svgp.py:128-132 with whiten=True)."""
+        """KL[q(u) || p(u)]: p = N(0, I) whitened, N(0, Kuu) otherwise
+        (svgp.py:128-132)."""
         return gauss_kl(self.q_mu.value, self.q_sqrt.value,
+                        None if self.whiten else self.kuu(),
                         assume_tril=self.q_sqrt.transform == "tril")

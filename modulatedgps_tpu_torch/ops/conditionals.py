@@ -1,33 +1,38 @@
-"""Sparse-GP conditional: Cholesky, triangular inverse, matmuls.
+"""Sparse-GP conditional: Cholesky, triangular solves, matmuls.
 
-Mirrors modulatedgps_tpu/ops/conditionals.py: ``base_conditional`` with
-white=True, for a lower-triangular [K, M, M], diagonal [M, K] or absent
-q_sqrt, marginal (full_cov=False) or joint over the N points (full_cov=True):
+Mirrors modulatedgps_tpu/ops/conditionals.py: ``base_conditional`` and
+``conditional_from_chol``, whitened or not, for a lower-triangular
+[K, M, M], diagonal [M, K] or absent q_sqrt, marginal (full_cov=False) or
+joint over the N points (full_cov=True):
 
     A     = chol(Kmm)^-1 Kmn                  [M, N]
+    fvar  = Knn - sum_m A^2                   [N]          (marginal)
+    fvar  = Knn - A^T A                       [N, N]       (joint)
+    A     = chol(Kmm)^-T A                    (white=False only)
     fmean = A^T q_mu                          [N, K]
     B_k   = A^T tril q_sqrt_k                 [K, N, M]
-    fvar  = Knn - sum_m A^2 + sum_m' B^2      [N, K]       (marginal)
-    fvar  = Knn - A^T A + B_k B_k^T           [K, N, N]    (joint)
+    fvar += sum_m' B^2  or  B_k B_k^T
 
-For a float32 tril q_sqrt, B goes through the bf16 tril kernels, the
-precision class of the TPU path: the marginal through
-tril_kernel.atl_sq_colsum (B held in bf16, forward and backward; its ~0.4%
-relative error in the q_sqrt term is why fvar is clamped at 1e-12 as in
-JAX), the joint through tril_kernel.atl_matmul (f32 B from bf16 operands,
-forward only).  The two [N, N] products of the joint form stay fp32
-matmuls, as JAX leaves them to XLA.  float64 (the CPU reference) forms B
-densely in float64.  Gradients flow through the marginal routes and
-through whiten_solve.
+The whitened A comes from whiten_solve (one TRSM inverse and a matmul);
+the unwhitened one from two exact solves (solve_lower: the forward and the
+transposed TRSM kernels).  For a float32 tril q_sqrt, B goes through the
+bf16 tril kernels, the precision class of the TPU path: the marginal
+through tril_kernel.atl_sq_colsum (B held in bf16; its ~0.4% relative error
+in the q_sqrt term is why fvar is clamped at 1e-12 as in JAX), the joint
+through tril_kernel.atl_matmul (f32 B from bf16 operands).  The two [N, N]
+products of the joint form stay fp32 matmuls, as JAX leaves them to XLA.
+float64 (the CPU reference) forms B densely in float64.  Every route is
+differentiable.
 """
 from __future__ import annotations
 
 import torch
 
-from .linalg import whiten_solve
+from .linalg import cholesky, solve_lower, whiten_solve
 from .tril_kernel import atl_matmul, atl_sq_colsum
 
-__all__ = ["base_conditional", "expand_independent_outputs"]
+__all__ = ["base_conditional", "conditional_from_chol",
+           "expand_independent_outputs"]
 
 
 def expand_independent_outputs(fvar: torch.Tensor, full_cov: bool,
@@ -51,23 +56,37 @@ def expand_independent_outputs(fvar: torch.Tensor, full_cov: bool,
 
 def base_conditional(Kmn, Kmm, Knn, q_mu, *, q_sqrt=None,
                      full_cov: bool = False, white: bool = True):
-    """q(f) = N(fmean, fvar) of a whitened SVGP: fmean [N, K] and fvar
-    [N, K] (full_cov=False) or [K, N, N] (full_cov=True).
+    """q(f) = N(fmean, fvar) of an SVGP: fmean [N, K] and fvar [N, K]
+    (full_cov=False) or [K, N, N] (full_cov=True).
 
     Kmn [M, N], Kmm [M, M], Knn [N] (the diagonal) or [N, N] (full_cov),
     q_mu [M, K].
     """
-    if not white:
-        raise NotImplementedError(
-            "the port serves white=True; the unwhitened conditional waits for "
-            "the pullback of the TRSM inverse and the unwhitened KL")
-    A = whiten_solve(Kmm, Kmn)                                 # [M, N]
-    fmean = A.T @ q_mu                                         # [N, K]
-    K = q_mu.shape[-1]
+    if white:
+        return _conditional_tail(whiten_solve(Kmm, Kmn), None, Knn, q_mu,
+                                 q_sqrt=q_sqrt, full_cov=full_cov, white=True)
+    return conditional_from_chol(Kmn, cholesky(Kmm), Knn, q_mu, q_sqrt=q_sqrt,
+                                 full_cov=full_cov, white=False)
+
+
+def conditional_from_chol(Kmn, Lm, Knn, q_mu, *, q_sqrt=None,
+                          full_cov: bool = False, white: bool = True):
+    """base_conditional with the Cholesky factor Lm of Kmm given."""
+    return _conditional_tail(solve_lower(Lm, Kmn), Lm, Knn, q_mu,
+                             q_sqrt=q_sqrt, full_cov=full_cov, white=white)
+
+
+def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white):
+    """Everything downstream of the whitened feature map A = Lm^-1 Kmn; Lm
+    is read only for the unwhitened second solve."""
     if full_cov:
         fvar = Knn - A.T @ A                                   # [N, N]
     else:
         fvar = Knn - A.square().sum(-2)                        # [N]
+    if not white:
+        A = solve_lower(Lm, A, trans=True)                     # Lm^-T A
+    fmean = A.T @ q_mu                                         # [N, K]
+    K = q_mu.shape[-1]
     if q_sqrt is None:
         return fmean, (fvar.expand(K, *fvar.shape) if full_cov
                        else fvar[:, None].expand(-1, K))

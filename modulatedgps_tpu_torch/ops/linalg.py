@@ -1,34 +1,60 @@
 """Dense linear algebra of the conditional.
 
 Mirrors modulatedgps_tpu/ops/linalg.py.  ``torch.linalg.cholesky`` takes
-the place of ``jnp.linalg.cholesky``; the triangular inverse and solves go
-through ``trsm_kernel.trsm_lower`` (the CUDA kernel on the card, its plain
-version on the CPU) at every M, with no TPU routing threshold.  The
-whitened feature map A = chol(Kmm)^-1 Kmn is formed as Linv @ Kmn, the JAX
-package's fast-solves form: one substitution for the [M, M] inverse, then
-one large matmul.  ``whiten_solve`` is an autograd Function with the JAX
-package's composite pullback (linalg.py:246-330), which reuses the
-forward's Linv and closes with the banded Cholesky pullback
-(trimm_kernel.chol_pullback_structured).
+the place of ``jnp.linalg.cholesky`` (cuSOLVER, as XLA's on the TPU); the
+triangular inverse and solves go through ``trsm_kernel.trsm_lower`` and
+``trsm_lower_t`` (the CUDA kernels on the card, their plain versions on the
+CPU) at every M, with no TPU routing threshold.  Three autograd Functions:
+
+- ``cholesky``: Murray's pullback as linalg._chol_fast_bwd computes it
+  (linalg.py:366-399), with L^-1 from the TRSM inverse and the banded
+  products of trimm_kernel.chol_pullback_structured;
+- ``solve_lower``: exact blocked substitution, L^-1 B or L^-T B, with the
+  pullback of pallas_linalg.solve_triangular_blocked (:499-510), whose
+  B-cotangent is the other-way solve;
+- ``whiten_solve``: the whitened feature map A = chol(Kmm)^-1 Kmn formed as
+  Linv @ Kmn, the JAX package's fast-solves form (one substitution for the
+  [M, M] inverse, then one large matmul), with its composite pullback
+  (linalg.py:246-330), which reuses the forward's Linv and closes with the
+  banded Cholesky pullback.
 """
 from __future__ import annotations
 
 import torch
 
 from .trimm_kernel import chol_pullback_structured
-from .trsm_kernel import trsm_lower
+from .trsm_kernel import trsm_lower, trsm_lower_t
 
 __all__ = ["cholesky", "add_jitter", "triangular_inverse", "solve_lower",
            "whiten_solve"]
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of an SPD matrix, row-major.
+    """Lower Cholesky factor of an SPD [M, M] matrix, row-major, with
+    Murray's pullback.
 
     On CUDA, torch.linalg.cholesky returns the factor column-major (the
     solver's layout); the kernels take row-major tensors, so it is copied
     once here ([M, M], small next to the work that reads it)."""
-    return torch.linalg.cholesky(K).contiguous()
+    return _Cholesky.apply(K)
+
+
+class _Cholesky(torch.autograd.Function):
+    """Kbar = sym(L^-T phi(L^T Lbar) L^-1), phi = tril with a halved
+    diagonal.  Lbar's upper triangle is never read: L is lower-triangular,
+    so only the lower triangle of a cotangent reaches K."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L = torch.linalg.cholesky(K).contiguous()
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, Lbar):
+        L, = ctx.saved_tensors
+        return chol_pullback_structured(L, triangular_inverse(L),
+                                        Lbar.contiguous())
 
 
 def add_jitter(K: torch.Tensor, jitter: float) -> torch.Tensor:
@@ -41,10 +67,41 @@ def triangular_inverse(L: torch.Tensor) -> torch.Tensor:
     return trsm_lower(L)
 
 
-def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """L^-1 B by blocked substitution (the transposed solve waits for the
-    port of pallas_linalg._trsm_t_kernel)."""
-    return trsm_lower(L, B)
+def solve_lower(L: torch.Tensor, B: torch.Tensor, *,
+                trans: bool = False) -> torch.Tensor:
+    """L^-1 B, or L^-T B with ``trans``, by blocked substitution,
+    differentiable in L and B.  L [M, M] (upper triangle ignored); B
+    [M, Nb], or [K, M, Nb], solved as one [M, K*Nb] right side."""
+    if B.ndim == 3:
+        K, M, Nb = B.shape
+        X = _SolveLower.apply(L, B.permute(1, 0, 2).reshape(M, K * Nb), trans)
+        return X.reshape(M, K, Nb).permute(1, 0, 2)
+    return _SolveLower.apply(L, B, trans)
+
+
+class _SolveLower(torch.autograd.Function):
+    """X = op(L)^-1 B:  Bbar = op(L)^-T Xbar (the other-way solve);
+    Lbar = -tril(Bbar X^T) for op = I, -tril(X Bbar^T) for op = T.  The
+    [M, Nb] x [Nb, M] product stays a plain fp32 matmul, as JAX leaves it
+    to XLA."""
+
+    @staticmethod
+    def forward(ctx, L, B, trans):
+        X = (trsm_lower_t if trans else trsm_lower)(L, B.contiguous())
+        ctx.trans = trans
+        ctx.save_for_backward(L, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        L, X = ctx.saved_tensors
+        Xbar = Xbar.contiguous()
+        Bbar = (trsm_lower if ctx.trans else trsm_lower_t)(L, Xbar)
+        Lbar = None
+        if ctx.needs_input_grad[0]:
+            G = X @ Bbar.T if ctx.trans else Bbar @ X.T
+            Lbar = torch.tril(G).neg_()
+        return Lbar, Bbar if ctx.needs_input_grad[1] else None, None
 
 
 def whiten_solve(Kmm: torch.Tensor, Kmn: torch.Tensor) -> torch.Tensor:

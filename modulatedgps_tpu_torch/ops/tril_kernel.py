@@ -4,26 +4,27 @@ plain versions.
 
 Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_fwd_b16 (forward) and
 _k_dl_g / _k_da_g (backward), reached there through atl_sq_colsum (the
-diagonal variance sum_m' B^2), and _k_fwd, reached through atl_matmul (the
-f32 B of the full covariance).  The kernels are csrc/tril_fwd.cu (both
-forwards, one kernel templated on the output type) and csrc/tril_bwd.cu.  On the H100 each is
-tensor-core bound (K*N*M^2/2 = 5.5e11 multiply-adds a layer at M=4096,
-N=8192, K=8), so each runs bf16 wmma fragments with fp32 accumulators held
-over the whole contraction, visits only the tiles on or below the diagonal,
-and zeroes L's strictly-upper entries as it stages them.  The backward
+diagonal variance sum_m' B^2), and _k_fwd (forward) and _k_dl / _k_da
+(backward), reached through atl_matmul (the f32 B of the full covariance).
+The kernels are csrc/tril_fwd.cu (both forwards, one kernel templated on
+the output type) and csrc/tril_bwd.cu (both backward pairs, templated on
+the source of W).  On the H100 each is tensor-core bound (K*N*M^2/2 =
+5.5e11 multiply-adds a layer at M=4096, N=8192, K=8), so each runs bf16
+wmma fragments with fp32 accumulators held over the whole contraction,
+visits only the tiles on or below the diagonal, and zeroes L's
+strictly-upper entries as it stages them.  The square-sum's backward
 kernels form W = bf16(B16 * G) while staging each tile (G = 2 * the
-cotangent of the square-sum), so no W array reaches device memory.
+cotangent of the square-sum), so no W array reaches device memory;
+atl_matmul's read W16 = bf16(dB).
 
-As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and the square-sum
-over m' runs outside the kernel: B16 stays the forward kernel's output
-because the backward kernels read it.
+As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and ``atl_matmul``,
+and the square-sum over m' runs outside the kernel: B16 stays the forward
+kernel's output because the backward kernels read it.
 
-``atl_matmul``'s backward (pallas_tril._k_dl / _k_da) is not ported yet: it
-raises while autograd records.
-
-Each wrapper (``tril_sq_fwd``, ``tril_fwd_f32``, ``tril_sq_dl``,
-``tril_sq_da``) takes its plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.  Every launch adds one to the wrapper's ``launches``.
+Each wrapper (``tril_sq_fwd``, ``tril_fwd_f32``, ``tril_dl``, ``tril_da``,
+``tril_sq_dl``, ``tril_sq_da``) takes its plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.  Every launch
+adds one to the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ import torch
 from .. import _native
 
 __all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "tril_fwd_f32",
-           "tril_fwd_f32_plain", "tril_sq_dl", "tril_sq_dl_plain",
-           "tril_sq_da", "tril_sq_da_plain", "atl_sq_colsum", "atl_matmul",
+           "tril_fwd_f32_plain", "tril_dl", "tril_dl_plain", "tril_da",
+           "tril_da_plain", "tril_sq_dl", "tril_sq_dl_plain", "tril_sq_da",
+           "tril_sq_da_plain", "atl_sq_colsum", "atl_matmul",
            "check_launch_args", "check_bwd_launch_args"]
 
 
@@ -52,19 +54,31 @@ def _scaled(B16, G):
     return (B16.float() * G[:, :, None]).to(torch.bfloat16)
 
 
+def tril_dl_plain(A16, W16):
+    """dL[k] = tril(A16 W16_k) with fp32 accumulation: [M, N], [K, N, M]
+    -> [K, M, M] fp32."""
+    return torch.tril(A16.float() @ W16.float())
+
+
+def tril_da_plain(L16, W16):
+    """dA = sum_k tril(L16_k) W16_k^T with fp32 accumulation, as one
+    [M, K*M] x [K*M, N] product: [K, M, M], [K, N, M] -> [M, N] fp32."""
+    K, M, _ = L16.shape
+    Lcat = torch.tril(L16.float()).permute(1, 0, 2).reshape(M, K * M)
+    Wcat = W16.float().transpose(1, 2).reshape(K * M, -1)
+    return Lcat @ Wcat
+
+
 def tril_sq_dl_plain(A16, B16, G):
-    """dL[k] = tril(A16 W_k) with fp32 accumulation: [M, N], [K, N, M],
-    [K, N] -> [K, M, M] fp32."""
-    return torch.tril(A16.float() @ _scaled(B16, G).float())
+    """tril_dl_plain with W = bf16(B16 G): [M, N], [K, N, M], [K, N] ->
+    [K, M, M] fp32."""
+    return tril_dl_plain(A16, _scaled(B16, G))
 
 
 def tril_sq_da_plain(L16, B16, G):
-    """dA = sum_k tril(L16_k) W_k^T with fp32 accumulation, as one
-    [M, K*M] x [K*M, N] product: [K, M, M], [K, N, M], [K, N] -> [M, N]."""
-    K, M, _ = L16.shape
-    Lcat = torch.tril(L16.float()).permute(1, 0, 2).reshape(M, K * M)
-    Wcat = _scaled(B16, G).float().transpose(1, 2).reshape(K * M, -1)
-    return Lcat @ Wcat
+    """tril_da_plain with W = bf16(B16 G): [K, M, M], [K, N, M], [K, N] ->
+    [M, N] fp32."""
+    return tril_da_plain(L16, _scaled(B16, G))
 
 
 def check_launch_args(A16, L16, what="tril_sq_fwd"):
@@ -72,10 +86,14 @@ def check_launch_args(A16, L16, what="tril_sq_fwd"):
     _native.require(f"{what} L16", L16, torch.bfloat16, A16.device)
 
 
-def check_bwd_launch_args(what, X16, B16, G):
+def check_bwd_launch_args(what, X16, B16, G=None):
+    """The backward kernels' operands: A16 or L16, then B16 (with G, the
+    square-sum's scaling) or W16 (G=None)."""
     _native.require(f"{what} operand", X16, torch.bfloat16, X16.device)
-    _native.require(f"{what} B16", B16, torch.bfloat16, X16.device)
-    _native.require(f"{what} G", G, torch.float32, X16.device)
+    _native.require(f"{what} {'W16' if G is None else 'B16'}", B16,
+                    torch.bfloat16, X16.device)
+    if G is not None:
+        _native.require(f"{what} G", G, torch.float32, X16.device)
 
 
 def _check_device(what, t):
@@ -122,17 +140,50 @@ def tril_fwd_f32(A16, L16):
     return B
 
 
-def _check_bwd_shapes(what, operand, X16, B16, G):
-    """(K, N, M) of B16 [K, N, M], checked against the operand (A16 [M, N]
-    or L16 [K, M, M]) and G [K, N]."""
+def _check_bwd_shapes(what, operand, X16, B16, G=None):
+    """(K, N, M) of B16 or W16 [K, N, M], checked against the operand (A16
+    [M, N] or L16 [K, M, M]) and, where given, G [K, N]."""
     K, N, M = B16.shape if B16.ndim == 3 else (-1, -1, -1)
     want = {"A16": (M, N), "L16": (K, M, M)}[operand]
-    if K < 0 or X16.shape != want or G.shape != (K, N):
-        raise ValueError(f"{what}: expected B16 [K, N, M], {operand} "
+    if K < 0 or X16.shape != want or (G is not None and G.shape != (K, N)):
+        raise ValueError(f"{what}: expected B16 / W16 [K, N, M], {operand} "
                          f"{'[M, N]' if operand == 'A16' else '[K, M, M]'} "
                          f"and G [K, N], got {tuple(B16.shape)}, "
-                         f"{tuple(X16.shape)} and {tuple(G.shape)}")
+                         f"{tuple(X16.shape)} and "
+                         f"{None if G is None else tuple(G.shape)}")
     return K, N, M
+
+
+def tril_dl(A16, W16):
+    """dL[k, m, m'] = sum_n A16[m, n] W16[k, n, m'] for m >= m', exactly 0
+    above the diagonal: -> [K, M, M] fp32 (atl_matmul's dL)."""
+    K, N, M = _check_bwd_shapes("tril_dl", "A16", A16, W16)
+    if not _check_device("tril_dl", A16):
+        return tril_dl_plain(A16, W16)
+    check_bwd_launch_args("tril_dl", A16, W16)
+    dL = torch.empty((K, M, M), dtype=torch.float32, device=A16.device)
+    code = _native.library().mgp_tril_dl_w(
+        A16.data_ptr(), W16.data_ptr(), dL.data_ptr(), M, N, K,
+        _native.stream_ptr(A16.device))
+    _native.check(code, "tril_dl")
+    tril_dl.launches += 1
+    return dL
+
+
+def tril_da(L16, W16):
+    """dA[m, n] = sum_k sum_{m' <= m} L16[k, m, m'] W16[k, n, m'] (L16's
+    upper triangle ignored): -> [M, N] fp32 (atl_matmul's dA)."""
+    K, N, M = _check_bwd_shapes("tril_da", "L16", L16, W16)
+    if not _check_device("tril_da", L16):
+        return tril_da_plain(L16, W16)
+    check_bwd_launch_args("tril_da", L16, W16)
+    dA = torch.empty((M, N), dtype=torch.float32, device=L16.device)
+    code = _native.library().mgp_tril_da_w(
+        L16.data_ptr(), W16.data_ptr(), dA.data_ptr(), M, N, K,
+        _native.stream_ptr(L16.device))
+    _native.check(code, "tril_da")
+    tril_da.launches += 1
+    return dA
 
 
 def tril_sq_dl(A16, B16, G):
@@ -169,6 +220,8 @@ def tril_sq_da(L16, B16, G):
 
 tril_sq_fwd.launches = 0
 tril_fwd_f32.launches = 0
+tril_dl.launches = 0
+tril_da.launches = 0
 tril_sq_dl.launches = 0
 tril_sq_da.launches = 0
 
@@ -202,16 +255,30 @@ def atl_sq_colsum(A, L):
     return _AtlSqColsum.apply(A, L)
 
 
+class _AtlMatmul(torch.autograd.Function):
+    """pallas_tril.atl_matmul's custom VJP (:358-377): the forward keeps
+    (A16, L16); the backward casts the cotangent once, W16 = bf16(dB), and
+    runs the dL / dA kernels on it."""
+
+    @staticmethod
+    def forward(ctx, A, L):
+        A16 = A.to(torch.bfloat16).contiguous()
+        L16 = L.to(torch.bfloat16).contiguous()
+        ctx.save_for_backward(A16, L16)
+        return tril_fwd_f32(A16, L16)
+
+    @staticmethod
+    def backward(ctx, Bbar):
+        A16, L16 = ctx.saved_tensors
+        W16 = Bbar.to(torch.bfloat16).contiguous()
+        dA = tril_da(L16, W16) if ctx.needs_input_grad[0] else None
+        dL = tril_dl(A16, W16) if ctx.needs_input_grad[1] else None
+        return dA, dL
+
+
 def atl_matmul(A, L):
     """B = A^T tril(L) in f32 from bf16 operands: A [M, N], L [K, M, M]
-    (lower triangle read) -> [K, N, M] (pallas_tril.atl_matmul's forward:
-    both cast to bf16, fp32 accumulation, an f32 B).  Forward only: the
-    backward kernels (#6 _k_dl, #7 _k_da) are not ported, so this raises
-    while autograd records."""
-    if torch.is_grad_enabled() and (A.requires_grad or L.requires_grad):
-        raise NotImplementedError(
-            "atl_matmul: the backward of the f32 tril forward (kernels #6 "
-            "pallas_tril._k_dl and #7 _k_da) is not ported yet; call it "
-            "under torch.no_grad() or torch.inference_mode()")
-    return tril_fwd_f32(A.to(torch.bfloat16).contiguous(),
-                        L.to(torch.bfloat16).contiguous())
+    (lower triangle read) -> [K, N, M] (pallas_tril.atl_matmul: both cast
+    to bf16, fp32 accumulation, an f32 B), with its gradient through the dL
+    / dA kernels (dA returned as fp32, dL exactly lower-triangular)."""
+    return _AtlMatmul.apply(A, L)

@@ -65,9 +65,9 @@ def test_cpu_tensors_launch_nothing():
     assert _native._lib is None
 
 
-KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_fwd_f32", "tril_sq_dl",
-           "tril_sq_da", "tri_tt_matmul", "tri_nt_matmul", "kl_sq_logdiag",
-           "kl_bwd_scale", "adam_tril_")
+KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "trsm_lower_t", "tril_fwd_f32",
+           "tril_dl", "tril_da", "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
+           "tri_nt_matmul", "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_")
 
 
 def test_cpu_train_step_launches_nothing():
@@ -122,7 +122,8 @@ def _grad(*shape, dtype=torch.float32):
                                   "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
                                   "tri_nt_matmul", "kl_sq_logdiag",
                                   "kl_bwd_scale", "adam_tril_",
-                                  "tril_fwd_f32"])
+                                  "tril_fwd_f32", "trsm_lower_t", "tril_dl",
+                                  "tril_da"])
 def test_cuda_argument_checks_refuse_grad(case):
     bf16 = torch.bfloat16
     with pytest.raises(NotImplementedError, match="autograd Function"):
@@ -143,6 +144,12 @@ def test_cuda_argument_checks_refuse_grad(case):
                 torch.tensor(1.0), torch.tensor(1.0))
         elif case == "trsm_lower":
             trsm_kernel.check_launch_args(torch.eye(4, requires_grad=True))
+        elif case == "trsm_lower_t":
+            trsm_kernel.check_launch_args(torch.eye(4), _grad(4, 3), case)
+        elif case in ("tril_dl", "tril_da"):
+            tril_kernel.check_bwd_launch_args(
+                case, torch.zeros(4, 3, dtype=bf16),
+                torch.zeros(1, 3, 4, dtype=bf16, requires_grad=True))
         elif case == "tril_sq_fwd":
             tril_kernel.check_launch_args(
                 torch.zeros(4, 3, dtype=torch.bfloat16, requires_grad=True),
@@ -170,11 +177,23 @@ def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
                                   "trsm_rhs", "tril_sq_fwd", "tril_sq_bwd_G",
                                   "tril_sq_bwd_B16", "trimm", "kl_sq_logdiag",
                                   "kl_bwd_scale_g", "adam_tril_",
-                                  "tril_fwd_f32"])
+                                  "tril_fwd_f32", "trsm_lower_t", "tril_dl",
+                                  "tril_da"])
 def test_cuda_argument_checks_refuse_dtype(case):
     f64 = torch.float64
     with pytest.raises(TypeError):
-        if case == "kl_sq_logdiag":   # the f64 KL keeps the dense form
+        if case == "trsm_lower_t":
+            trsm_kernel.check_launch_args(torch.eye(4, dtype=f64),
+                                          torch.zeros(4, 3, dtype=f64), case)
+        elif case == "tril_dl":   # W16 = bf16(dB), cast by atl_matmul
+            tril_kernel.check_bwd_launch_args(
+                case, torch.zeros(4, 3, dtype=torch.bfloat16),
+                torch.zeros(1, 3, 4))
+        elif case == "tril_da":
+            tril_kernel.check_bwd_launch_args(
+                case, torch.zeros(1, 4, 4), torch.zeros(1, 3, 4,
+                                                        dtype=torch.bfloat16))
+        elif case == "kl_sq_logdiag":   # the f64 KL keeps the dense form
             kl_kernel.check_launch_args(case, torch.zeros(2, 4, 4, dtype=f64))
         elif case == "kl_bwd_scale_g":
             kl_kernel.check_launch_args("kl_bwd_scale", torch.zeros(2, 4, 4),
@@ -250,11 +269,18 @@ def test_new_wrappers_refuse_layout_and_shape():
 
 
 def test_atl_matmul_refuses_autograd():
-    """The f32 tril forward has no backward yet (kernels #6/#7): it raises
-    while autograd records, on the CPU as on the card, and runs without."""
+    """The f32 tril forward no longer refuses autograd: while it records,
+    atl_matmul's backward (kernels #6/#7, their plain versions here)
+    gives fp32 gradients of A and L, dL exactly 0 above the diagonal, and
+    launches nothing on CPU tensors; without autograd it still runs."""
     A = torch.randn(5, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="#6.*#7"):
-        tril_kernel.atl_matmul(A, torch.randn(2, 5, 5))
+    L = torch.randn(2, 5, 5, requires_grad=True)
+    pt.reset_launch_counts()
+    tril_kernel.atl_matmul(A, L).square().sum().backward()
+    assert A.grad.dtype == L.grad.dtype == torch.float32
+    assert A.grad.shape == (5, 3) and L.grad.shape == (2, 5, 5)
+    assert not torch.triu(L.grad, 1).any() and L.grad.abs().sum() > 0
+    assert pt.launch_counts() == dict.fromkeys(KERNELS, 0)
     with torch.no_grad():
         assert tril_kernel.atl_matmul(A, torch.randn(2, 5, 5)).shape == (2, 3, 5)
 

@@ -100,16 +100,23 @@ def test_base_conditional_matches_jax_f64(q_sqrt_kind):
 
 
 def test_base_conditional_refuses_unported_forms():
-    """The unwhitened conditional, and the gradient of the f32 joint
-    covariance (the backward kernels of the f32 tril forward)."""
-    z = torch.zeros(2, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tc.base_conditional(z, torch.eye(2, dtype=torch.float64),
-                            torch.ones(2, dtype=torch.float64), z, white=False)
+    """The forms once refused now run: the unwhitened conditional (with Kmm
+    = I it is the whitened one), and the gradient of the f32 joint
+    covariance (the backward of the f32 tril forward, #6/#7)."""
+    rng = np.random.default_rng(7)
+    Kmn = torch.as_tensor(rng.normal(size=(2, 3)))
+    q_mu = torch.as_tensor(rng.normal(size=(2, 2)))
+    eye = torch.eye(2, dtype=torch.float64)
+    Knn = torch.full((3,), 2.0, dtype=torch.float64)
+    for a, b in zip(tc.base_conditional(Kmn, eye, Knn, q_mu, white=False),
+                    tc.base_conditional(Kmn, eye, Knn, q_mu)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
     q_sqrt = torch.eye(2).expand(2, 2, 2).clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="#6"):
-        tc.base_conditional(torch.zeros(2, 3), torch.eye(2), torch.eye(3),
-                            torch.zeros(2, 2), q_sqrt=q_sqrt, full_cov=True)
+    _, cov = tc.base_conditional(Kmn.float(), torch.eye(2), torch.eye(3),
+                                 torch.zeros(2, 2), q_sqrt=q_sqrt, full_cov=True)
+    cov.sum().backward()
+    assert torch.isfinite(q_sqrt.grad).all() and q_sqrt.grad.abs().sum() > 0
+    assert not torch.triu(q_sqrt.grad, 1).any()
 
 
 @pytest.mark.parametrize("full_cov", [False, True])

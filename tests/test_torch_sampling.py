@@ -72,14 +72,24 @@ def test_atl_matmul_plain_matches_pallas_interpret():
 
 
 def test_atl_matmul_refuses_autograd_and_runs_without_it():
+    """atl_matmul no longer refuses autograd: with it, the forward is #5's
+    plain version and the backward #6/#7's on W16 = bf16(dB); without it,
+    the same forward."""
     A = torch.randn(6, 5, requires_grad=True)
-    L = torch.randn(2, 6, 6)
-    with pytest.raises(NotImplementedError, match="#6"):
-        tril_kernel.atl_matmul(A, L)
+    L = torch.randn(2, 6, 6, requires_grad=True)
+    B = tril_kernel.atl_matmul(A, L)
+    want = tril_kernel.tril_fwd_f32_plain(A.detach().bfloat16(),
+                                          L.detach().bfloat16())
+    assert torch.equal(B.detach(), want)
+    Bbar = torch.randn(2, 5, 6)
+    B.backward(Bbar)
+    W16 = Bbar.bfloat16()
+    assert torch.equal(A.grad, tril_kernel.tril_da_plain(L.detach().bfloat16(),
+                                                         W16))
+    assert torch.equal(L.grad, tril_kernel.tril_dl_plain(A.detach().bfloat16(),
+                                                         W16))
     with torch.no_grad():
-        B = tril_kernel.atl_matmul(A, L)
-    want = tril_kernel.tril_fwd_f32_plain(A.detach().bfloat16(), L.bfloat16())
-    assert torch.equal(B, want)
+        assert torch.equal(tril_kernel.atl_matmul(A, L), want)
 
 
 def _perturbed_layer(rng, variance, lengthscale, q_diag=False):
