@@ -12,17 +12,22 @@ Phases, each printing its own lines:
      small ragged shapes and at its main-path shape, with CUDA-event
      medians of the kernel, the plain version and, where one exists, one
      PyTorch call computing the same function, beside the kernel's bound;
+     the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
+     north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
+     by kernel at M=4096;
   3. the north-star SMGP (M=4096, K=8, D=4, f32) at a seeded, perturbed
      state: 4 request batches of 8192 through precompute_smgp ->
      predict_y / predict_assign / predict_density and 2 through the
-     training-path predict_y, with each serving kernel's launch count > 0;
+     training-path predict_y, with each serving kernel's launch count > 0
+     (the Cholesky and the fused q_sqrt quadratic #17 among them);
   4. the same model at M=1024, batch 2048 on the card against the port's
-     plain path in float64 on the CPU;
+     plain path in float64 on the CPU, the Cholesky and #17 launched;
   5. the train step at the north-star width (S=16, batch 8192, lr 5e-3,
      Adam): 6 steps with every train-path kernel's launch count > 0 (the
-     tril KL #12/#13 and the tril Adam #14 included), finite losses,
-     q_sqrt and its Adam moments exactly 0 above the diagonal, ms per step,
-     peak memory and a torch.profiler breakdown of one more step;
+     tril KL #12/#13, the tril Adam #14 and the Cholesky included), finite
+     losses, q_sqrt and its Adam moments exactly 0 above the diagonal, ms
+     per step, peak memory and a torch.profiler breakdown of one more step,
+     with no cuSOLVER factorization in it;
   6. the loss and the gradient of every raw leaf at M=1024, batch 2048 on
      the card against the port's f64 CPU path, with the same noise, at the
      north-star temperature 1e-2 and at 1;
@@ -42,7 +47,7 @@ Phases, each printing its own lines:
      training-path predict_y against the whitened model's, then 4 train
      steps with the transposed TRSM #4 launched forward and backward,
      finite losses, upper triangles exactly 0, ms per step, peak memory and
-     a profiler breakdown of one more step;
+     a profiler breakdown of one more step (no cuSOLVER factorization);
  12. path A at M=1024, batch 2048: outputs and raw-leaf gradients of the
      card against the f64 CPU path, beside the f32 CPU path's distance;
  13. path B, the gradient of the joint posterior at M=4096 on N=2048
@@ -52,8 +57,9 @@ Phases, each printing its own lines:
  14. path B at M=1024, N=512 against the f64 CPU path.
 The line before the last is a JSON object with every kernel's launches
 (on the path that runs it: the train step, sampling for #5, path A for #4,
-path B for #6/#7), errors, times and bounds; the last is {"ok": true,
-"device": {...}}.  Any failure exits non-zero without that last line.
+path B for #6/#7, the served batches for #17), errors, times and bounds;
+the last is {"ok": true, "device": {...}}.  Any failure exits non-zero
+without that last line.
 Without CUDA it exits non-zero before doing anything.
 """
 from __future__ import annotations
@@ -100,22 +106,36 @@ KERNEL_SOURCES = {
                 "modulatedgps_tpu/ops/pallas_tril.py:224"),
     "tril_da": ("modulatedgps_tpu_torch/csrc/tril_bwd.cu",
                 "modulatedgps_tpu/ops/pallas_tril.py:276"),
+    "cholesky_factor": ("modulatedgps_tpu_torch/csrc/chol.cu",
+                        "modulatedgps_tpu/ops/pallas_linalg.py:87, "
+                        "modulatedgps_tpu/ops/pallas_linalg.py:171"),
+    "qsqrt_sq_colsum": ("modulatedgps_tpu_torch/csrc/quad.cu",
+                        "modulatedgps_tpu/ops/pallas_quad.py:43"),
 }
 # The kernels each path must launch (the JSON line takes each kernel's
 # launches from the path that runs it: tril_fwd_f32 from sampling,
-# trsm_lower_t from path A's train steps, tril_dl / tril_da from path B).
-SERVING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd")
+# trsm_lower_t from path A's train steps, tril_dl / tril_da from path B,
+# qsqrt_sq_colsum from the served batches of phase 3).
+SERVING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "cholesky_factor",
+                   "qsqrt_sq_colsum")
 TRAIN_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl",
                  "tril_sq_da", "tri_tt_matmul", "tri_nt_matmul",
-                 "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_")
-SAMPLING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_fwd_f32")
+                 "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_",
+                 "cholesky_factor")
+SAMPLING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_fwd_f32",
+                    "cholesky_factor")
 UNWHITENED_SERVING_KERNELS = ("kxz", "trsm_lower", "trsm_lower_t",
-                              "tril_sq_fwd")
+                              "tril_sq_fwd", "cholesky_factor",
+                              "qsqrt_sq_colsum")
 UNWHITENED_TRAIN_KERNELS = ("kxz", "trsm_lower", "trsm_lower_t",
                             "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
-                            "tri_tt_matmul", "tri_nt_matmul", "adam_tril_")
+                            "tri_tt_matmul", "tri_nt_matmul", "adam_tril_",
+                            "cholesky_factor")
 JOINT_GRAD_KERNELS = ("kxz", "trsm_lower", "tril_fwd_f32", "tril_dl",
-                      "tril_da", "tri_tt_matmul", "tri_nt_matmul")
+                      "tril_da", "tri_tt_matmul", "tri_nt_matmul",
+                      "cholesky_factor")
+# Phase 4 (M=1024, the size of #15's TPU kernel) launches these on the card.
+REFERENCE_KERNELS = ("cholesky_factor", "qsqrt_sq_colsum")
 M_FULL, K_EXPERTS, D_IN, BATCH = 4096, 8, 4, 8192
 M_REF, BATCH_REF = 1024, 2048
 # The f32 jitter floor: the whitened state is carried to the unwhitened one
@@ -579,6 +599,7 @@ def phase_kernels():
                                          True)
     rows.update(kl_adam_rows(rand, g))
     rows.update(trsm_t_tril_w_rows(rand, spd_chol))
+    rows.update(chol_quad_rows(rand))
     return rows
 
 
@@ -682,6 +703,173 @@ def trsm_t_tril_w_rows(rand, spd_chol):
     tril_w_case("ragged", 1, 5, 2, False)
     rows.update(tril_w_case("main", M_FULL, N_GRID, K_EXPERTS, True))
     return rows
+
+
+def chol_quad_rows(rand, dev="cuda"):
+    """Phase 2's rows for the blocked Cholesky (#15/#16) and the fused q_sqrt
+    quadratic (#17)."""
+    from modulatedgps_tpu_torch.ops import (chol_kernel, kxz_kernel,
+                                            quad_kernel, trsm_kernel)
+    dev = torch.device(dev)
+    rows = {}
+
+    def north_star_kmm(M, layer):
+        """K(Z, Z) + JITTER I of a north-star layer (SE (variance,
+        lengthscale)), Z ~ N(0, 1) as smgp_arrays draws it, in f32."""
+        var, ls = layer
+        Z = torch.as_tensor(np.random.default_rng(M).normal(size=(M, D_IN)),
+                            dtype=torch.float32, device=dev)
+        return (kxz_kernel.kxz_plain(Z, Z, torch.tensor(ls, device=dev),
+                                     torch.tensor(var, device=dev))
+                + JITTER * torch.eye(M, device=dev))
+
+    def inv_residual(L, Inv):
+        """max_j |Inv_j L_jj - I| over the diagonal blocks, L padded with
+        the identity as the kernel pads a ragged tail."""
+        nblk, B, _ = Inv.shape
+        M = L.shape[0]
+        Lp = torch.eye(nblk * B, device=dev)
+        Lp[:M, :M] = L
+        blocks = torch.stack([Lp[j * B:(j + 1) * B, j * B:(j + 1) * B]
+                              for j in range(nblk)])
+        return float((Inv @ blocks - torch.eye(B, device=dev)).abs().max())
+
+    # --- cholesky_factor: against f64 truth, the kernel's factor within 2x
+    # cuSOLVER's distance (max|L - L64| / max|L64|, + 2 ulps of the
+    # maximum, 2.4e-7) and within 4x of it from the plain version; every
+    # Inv_j L_jj within 3x of the plain version's residual from I (+ 1e-6);
+    # exact zeros above the diagonal; NaN (no exception) from a failed pivot's column on, the
+    # columns before it finite; trsm_lower fed Inv gives the same bits.
+    def chol_case(label, M, layer, name, record):
+        K = north_star_kmm(M, layer)
+        L, Inv = chol_kernel.cholesky_factor(K)
+        torch.cuda.synchronize()
+        Lp, Invp = chol_kernel.cholesky_factor_plain(K)
+        L64 = torch.linalg.cholesky(K.double())
+        scale = float(L64.abs().max())
+        dist = lambda X: float((X.double() - L64).abs().max()) / scale
+        e_k, e_p, e_lib = dist(L), dist(Lp), dist(torch.linalg.cholesky(K))
+        err = float((L - Lp).abs().max())
+        r_k, r_p = inv_residual(L, Inv), inv_residual(Lp, Invp)
+        check(finite(L) and finite(Inv) and upper_nonzero(L) == 0
+              and e_k <= 2 * e_lib + 2.4e-7 and err / scale <= 4 * e_lib + 2.4e-7
+              and r_k <= 3 * r_p + 1e-6,
+              f"cholesky_factor {label} M={M} {name} Kmm: vs f64 {e_k:.3e} "
+              f"(cuSOLVER {e_lib:.3e}, plain {e_p:.3e}; <= 2x cuSOLVER), vs "
+              f"plain {err / scale:.3e} (<= 4x cuSOLVER); max|Inv_j L_jj - I| "
+              f"{r_k:.3e} (plain {r_p:.3e}, <= 3x + 1e-6); 0 above the "
+              f"diagonal")
+        c0 = M // 2
+        K_bad = K.clone()
+        K_bad[c0, c0] = -1.0
+        nan_ok = []
+        for fn in (chol_kernel.cholesky_factor,
+                   chol_kernel.cholesky_factor_plain):
+            L_bad, _ = fn(K_bad)
+            torch.cuda.synchronize()
+            nan_ok.append(bool(torch.isnan(L_bad[c0, c0]))
+                          and finite(L_bad[:, :c0]))
+        B = rand(M, 77)
+        pairs = [(trsm_kernel.trsm_lower(L, B, inv=Inv),
+                  trsm_kernel.trsm_lower(L, B)),
+                 (trsm_kernel.trsm_lower(L, inv=Inv), trsm_kernel.trsm_lower(L)),
+                 (trsm_kernel.trsm_lower_t(L, B, inv=Inv),
+                  trsm_kernel.trsm_lower_t(L, B))]
+        same = [torch.equal(a, b) for a, b in pairs]
+        check(all(nan_ok) and all(same),
+              f"cholesky_factor {label} M={M} {name}: a pivot of -1 at column "
+              f"{c0} gives NaN from it on, finite before, no exception "
+              f"(kernel, plain): {nan_ok}; trsm_lower(L, B, inv=Inv), the "
+              f"inverse and trsm_lower_t bit-equal to recomputing Inv: {same}"
+              + ("" if all(same) else " (max |diff| "
+                 f"{max(float((a - b).abs().max()) for a, b in pairs):.3e})"))
+        if not record:
+            return None
+        ms, plain_ms, lib_ms = cuda_ms(
+            [lambda: chol_kernel.cholesky_factor(K),
+             lambda: chol_kernel.cholesky_factor_plain(K),
+             lambda: torch.linalg.cholesky_ex(K)], 10)
+        log(f"  cholesky_factor M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, torch.linalg.cholesky_ex (cuSOLVER) {lib_ms:.4f} ms")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound(2 * 4 * M * M, M ** 3 / 3, "fp32"),
+                "library_ms": lib_ms}
+
+    for M in (1, 70, 1000):
+        for name, layer in (("pred", PRED_SE), ("assign", ASSIGN_SE)):
+            chol_case("ragged", M, layer, name, False)
+    for M in (M_REF, M_FULL):
+        chol_case("main", M, ASSIGN_SE, "assign", False)
+        row = chol_case("main", M, PRED_SE, "pred", True)
+        log(f"  cholesky_factor M={M} row: {json.dumps(row)}")
+    rows["cholesky_factor"] = row
+    chol_phase_times(north_star_kmm(M_FULL, PRED_SE))
+
+    # --- qsqrt_sq_colsum: rtol 1e-4, atol 1e-5 of the largest output
+    # against its plain version (both multiply the same bf16 operands
+    # exactly and sum in fp32, in other orders; a dropped tile of an m-run
+    # moves an output by far more); NaN above S's diagonal has no effect;
+    # two launches give the same bits.
+    def quad_case(label, K, M, N, record):
+        S16 = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M)
+               + nan_above(K, M, dev)).to(torch.bfloat16)
+        A = rand(M, N, scale=1 / math.sqrt(M))
+        got = quad_kernel.qsqrt_sq_colsum(S16, A)
+        again = quad_kernel.qsqrt_sq_colsum(S16, A)
+        torch.cuda.synchronize()
+        want = quad_kernel.qsqrt_sq_colsum_plain(S16, A)
+        scale = float(want.abs().max())
+        err, bad = allclose_report(got, want, 1e-4, 1e-5 * scale)
+        repeat = same_bits(got, again)
+        check(bad == 0 and repeat and got.shape == (K, N)
+              and got.dtype == torch.float32,
+              f"qsqrt_sq_colsum {label} K={K} M={M} N={N}: max_abs_err "
+              f"{err:.3e} of max {scale:.3e} ({bad} outside rtol 1e-4, atol "
+              f"1e-5 max), NaN above S's diagonal; same bits twice: {repeat}")
+        if not record:
+            return None
+        A16 = A.to(torch.bfloat16)
+        St16 = torch.tril(S16).transpose(-1, -2)
+        ms, plain_ms, lib_ms = cuda_ms(
+            [lambda: quad_kernel.qsqrt_sq_colsum(S16, A),
+             lambda: quad_kernel.qsqrt_sq_colsum_plain(S16, A),
+             lambda: (St16 @ A16).float().square().sum(-2)], 5)
+        macs = K * N * (M * (M + 1) / 2)
+        log(f"  qsqrt_sq_colsum K={K} M={M} N={N}: kernel {ms:.4f} ms "
+            f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain {plain_ms:.4f} "
+            f"ms, bf16 matmul + square-sum {lib_ms:.4f} ms")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound(2 * (K * M * (M + 1) // 2 + M * N) + 4 * K * N,
+                        2 * macs, "bf16"),
+                "library_ms": lib_ms}
+
+    quad_case("ragged", 3, 200, 77, False)
+    quad_case("ragged", 2, 136, 264, False)
+    quad_case("ragged", 2, 1, 5, False)
+    quad_case("ragged", 1, 257, 300, False)
+    rows["qsqrt_sq_colsum"] = quad_case("main", K_EXPERTS, M_FULL, BATCH, True)
+    return rows
+
+
+def chol_phase_times(K):
+    """Device ms of one cholesky_factor call by kernel: the copy, the
+    diagonal tiles, the panels and the trailing updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from modulatedgps_tpu_torch.ops import chol_kernel
+    chol_kernel.cholesky_factor(K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chol_kernel.cholesky_factor(K)
+        torch.cuda.synchronize()
+    phases = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "chol_" in ev.key:
+            name = ev.key[ev.key.index("chol_"):].split("(")[0]
+            ms, n = phases.get(name, (0.0, 0))
+            phases[name] = (ms + ev.self_device_time_total / 1e3, n + ev.count)
+    log(f"  cholesky_factor M={K.shape[0]} by kernel (device ms, launches): "
+        + ", ".join(f"{k} {ms:.4f} ({n})" for k, (ms, n) in phases.items()))
 
 
 def nan_above(K, M, dev):
@@ -954,15 +1142,22 @@ def compare_to_reference(label, got, ref):
                   f"(rtol {rtol:g}, atol {atol:.2e})")
 
 
-def phase_reference(pt):
-    log(f"== phase 4: card f32 vs CPU f64 reference, M={M_REF} "
+def phase_reference(pt, dev="cuda"):
+    log(f"== phase 4: {dev} f32 vs CPU f64 reference, M={M_REF} "
         f"batch={BATCH_REF}")
     arrays, rng = smgp_arrays(M_REF)
     X = rng.uniform(-3, 3, size=(BATCH_REF, D_IN))
     Y = rng.normal(size=(BATCH_REF, 1))
     ref = reference_outputs(pt, arrays, X, Y, "cpu", torch.float64)
-    got = reference_outputs(pt, arrays, X, Y, "cuda", torch.float32)
-    compare_to_reference("card f32 vs cpu f64", got, ref)
+    pt.reset_launch_counts()
+    got = reference_outputs(pt, arrays, X, Y, dev, torch.float32)
+    counts = {name: n for name, n in pt.launch_counts().items()
+              if name in REFERENCE_KERNELS}
+    log(f"launches in the M={M_REF} run: {counts}")
+    for name, n in counts.items():
+        check(n > 0, f"{name} launched {n} times at M={M_REF}")
+    compare_to_reference(f"{dev} f32 vs cpu f64", got, ref)
+    return counts
 
 
 def upper_nonzero(t):
@@ -982,7 +1177,9 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("kxz_kernel", "kxz (#1)"),
             ("solve_kernel<true>", "trsm transposed (#4)"),
             ("solve_kernel", "trsm (#2)"),
-            ("diag_inv_kernel", "trsm (#2)"), ("gemm", "fp32 matmul (cuBLAS)"),
+            ("diag_inv_kernel", "trsm (#2)"), ("chol_", "cholesky (#15/#16)"),
+            ("quad_kernel", "q_sqrt quadratic (#17)"),
+            ("gemm", "fp32 matmul (cuBLAS)"),
             ("getrf", "cholesky (cuSOLVER)"), ("potrf", "cholesky (cuSOLVER)"),
             ("triu_tril", "tril / triu masks"), ("reduce", "reductions"))
 
@@ -1011,6 +1208,9 @@ def profile_step(step, model, gen, X, Y, top=12):
     log("largest kernels (self device ms, calls, name):")
     for ms, count, key in rows[:top]:
         log(f"  {ms:9.3f} {count:5d}  {key[:100]}")
+    solver = [key for _, _, key in rows if "potrf" in key or "getrf" in key]
+    check(not solver, f"no cuSOLVER factorization in the profiled step "
+          f"({len(solver)} kernels: {[k[:60] for k in solver[:3]]})")
 
 
 def phase_train(pt, dev="cuda", M=M_FULL, batch=BATCH, steps=TRAIN_STEPS):
@@ -1349,9 +1549,13 @@ def phase_multistart(pt, dev="cuda", M=M_REF, batch=BATCH_REF, num_iter=4,
 # outputs lie within 2.7e-4 of the maximum (means) and 2.8e-4 relative
 # (weights); the training path's variance within 1.4% relative: its q_sqrt
 # term rounds Kmm^-1 Kmn and L q_sqrt to bf16 and cancels, where the
-# whitened one rounds L^-1 Kmn and q_sqrt.
+# whitened one rounds L^-1 Kmn and q_sqrt.  The served variance's q_sqrt
+# term (#17) takes bf16 operands too: the whitened cache rounds q_sqrt,
+# the unwhitened one L^-1 (L q_sqrt), equal to it up to f32 rounding, so
+# entries next to a bf16 boundary round apart; on an H100 80GB HBM3 the
+# two served variances (about 1) lay up to 2.5e-3 apart, hence rtol 1e-2.
 UNWHITE_TOL = {
-    "served": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (1e-3, 0.0),
+    "served": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (1e-2, 0.0),
                "predict_assign": (1e-3, 1e-3),
                "predict_density": (1e-3, 1e-3)},
     "train": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (5e-2, 0.0)}}
@@ -1657,9 +1861,10 @@ def main() -> int:
 
     phase_device_and_build(_native)
     rows = phase_kernels()
-    phase_slice(pt)
-    phase_reference(pt)
+    served = phase_slice(pt)
+    ref_counts = phase_reference(pt)
     counts = phase_train(pt)
+    counts["qsqrt_sq_colsum"] = served["qsqrt_sq_colsum"]
     phase_grad_reference(pt)
     counts["tril_fwd_f32"] = phase_sampling(pt)["tril_fwd_f32"]
     phase_sampling_reference(pt)
@@ -1670,6 +1875,9 @@ def main() -> int:
     joint = phase_joint_grad(pt)
     counts.update(tril_dl=joint["tril_dl"], tril_da=joint["tril_da"])
     phase_joint_grad_reference(pt)
+    log(f"cholesky_factor launches: {counts['cholesky_factor']} in "
+        f"{TRAIN_STEPS} steps at M={M_FULL} (#16's shape), "
+        f"{ref_counts['cholesky_factor']} in phase 4 at M={M_REF} (#15's)")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts[name], **rows[name]}

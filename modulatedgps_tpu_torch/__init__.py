@@ -1,10 +1,11 @@
 """PyTorch and CUDA port of modulatedgps_tpu: the SMGP serving path, joint
 posterior sampling, and the Adam train step with checkpoints and
-multi-start.
+multi-start, whitened or not.
 
 The JAX package beside this one is the reference each ported part is held
-against.  Plain tensor code is PyTorch; the TPU's Pallas kernels on these
-paths are CUDA kernels for Hopper (csrc/), built with nvcc on first use.
+against.  Plain tensor code is PyTorch; each of the JAX package's Pallas
+kernels has a CUDA kernel for Hopper here (csrc/), built with nvcc on first
+use.
 On CPU tensors each kernel wrapper runs its plain PyTorch version; on CUDA
 tensors it launches the kernel or raises.  Models are created on the card
 unless the caller passes ``device="cpu"``.

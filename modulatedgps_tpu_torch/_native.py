@@ -33,8 +33,8 @@ _F = ctypes.c_float
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _P),
+    "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "mgp_kl_bwd": (_P, _P, _P, _I, _I, _P),
     "mgp_adam_tril": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                       _P),
+    "mgp_cholesky": (_P, _P, _P, _I, _P),
+    "mgp_qsqrt_sq_colsum": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -142,7 +144,8 @@ def require(what: str, t, dtype, device) -> None:
     mode on): a raw launcher records no gradient, so a caller that wants
     one goes through the autograd Function around it (``kxz``,
     ``atl_sq_colsum``, ``atl_matmul``, ``whiten_solve``, ``solve_lower``,
-    ``cholesky``), whose forward and backward launch with grad mode off.
+    ``cholesky``, ``qsqrt_sq_colsum``), whose forward and backward launch
+    with grad mode off.
     Under torch.inference_mode() or torch.no_grad() nothing is recorded, so
     a trainable parameter may feed them."""
     import torch
@@ -150,7 +153,8 @@ def require(what: str, t, dtype, device) -> None:
         raise NotImplementedError(
             f"{what}: the raw CUDA launcher records no gradient; call it "
             "through its autograd Function (kxz, atl_sq_colsum, atl_matmul, "
-            "whiten_solve, solve_lower, cholesky) or under torch.no_grad()")
+            "whiten_solve, solve_lower, cholesky, qsqrt_sq_colsum) or under "
+            "torch.no_grad()")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.device != device:

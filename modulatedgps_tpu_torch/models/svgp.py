@@ -102,7 +102,10 @@ class SVGP(nn.Module):
         ``full_cov=True`` draws from the joint posterior over Xnew: mean +
         L z with L the Cholesky factor of each latent's [N, N] covariance
         plus jitter I (torch.linalg.cholesky raises on a matrix that is not
-        positive definite, where JAX returns NaNs).  ``full_cov=False``
+        positive definite, where JAX returns NaNs).  This batched [K, N, N]
+        factor is the one Cholesky that stays torch.linalg.cholesky: the
+        JAX package's Pallas routing sends batched inputs to XLA too, and
+        its autograd carries path B's draws.  ``full_cov=False``
         draws each point from its marginal.  z is drawn from ``generator``,
         [S, K, N, 1] for the joint form, [S, N, K] for the marginal one.
         """

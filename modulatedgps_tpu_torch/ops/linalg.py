@@ -1,14 +1,16 @@
 """Dense linear algebra of the conditional.
 
-Mirrors modulatedgps_tpu/ops/linalg.py.  ``torch.linalg.cholesky`` takes
-the place of ``jnp.linalg.cholesky`` (cuSOLVER, as XLA's on the TPU); the
-triangular inverse and solves go through ``trsm_kernel.trsm_lower`` and
-``trsm_lower_t`` (the CUDA kernels on the card, their plain versions on the
-CPU) at every M, with no TPU routing threshold.  Three autograd Functions:
+Mirrors modulatedgps_tpu/ops/linalg.py.  The factor and the triangular
+inverse and solves go through the port's kernels at every M, with no TPU
+routing threshold: ``chol_kernel.cholesky_factor`` (the blocked Cholesky,
+which also returns the inverses of L's 64x64 diagonal blocks) and
+``trsm_kernel.trsm_lower`` / ``trsm_lower_t`` (the CUDA kernels on the card,
+their plain versions on the CPU).  Three autograd Functions:
 
 - ``cholesky``: Murray's pullback as linalg._chol_fast_bwd computes it
-  (linalg.py:366-399), with L^-1 from the TRSM inverse and the banded
-  products of trimm_kernel.chol_pullback_structured;
+  (linalg.py:366-399), with L^-1 from the TRSM inverse fed the factor's
+  diagonal-block inverses and the banded products of
+  trimm_kernel.chol_pullback_structured;
 - ``solve_lower``: exact blocked substitution, L^-1 B or L^-T B, with the
   pullback of pallas_linalg.solve_triangular_blocked (:499-510), whose
   B-cotangent is the other-way solve;
@@ -22,20 +24,23 @@ from __future__ import annotations
 
 import torch
 
+from .chol_kernel import cholesky_factor
 from .trimm_kernel import chol_pullback_structured
 from .trsm_kernel import trsm_lower, trsm_lower_t
 
-__all__ = ["cholesky", "add_jitter", "triangular_inverse", "solve_lower",
-           "whiten_solve"]
+__all__ = ["cholesky", "cholesky_with_inv", "add_jitter",
+           "triangular_inverse", "solve_lower", "whiten_solve"]
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of an SPD [M, M] matrix, row-major, with
-    Murray's pullback.
+    """Lower Cholesky factor of an SPD [M, M] matrix, row-major with exact
+    zeros above the diagonal, with Murray's pullback."""
+    return _Cholesky.apply(K)[0]
 
-    On CUDA, torch.linalg.cholesky returns the factor column-major (the
-    solver's layout); the kernels take row-major tensors, so it is copied
-    once here ([M, M], small next to the work that reads it)."""
+
+def cholesky_with_inv(K: torch.Tensor):
+    """(L, Inv): ``cholesky`` and the inverses of L's diagonal blocks (no
+    gradient), which ``triangular_inverse(L, Inv)`` takes."""
     return _Cholesky.apply(K)
 
 
@@ -46,14 +51,15 @@ class _Cholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K):
-        L = torch.linalg.cholesky(K).contiguous()
-        ctx.save_for_backward(L)
-        return L
+        L, Inv = cholesky_factor(K.contiguous())
+        ctx.mark_non_differentiable(Inv)
+        ctx.save_for_backward(L, Inv)
+        return L, Inv
 
     @staticmethod
-    def backward(ctx, Lbar):
-        L, = ctx.saved_tensors
-        return chol_pullback_structured(L, triangular_inverse(L),
+    def backward(ctx, Lbar, _):
+        L, Inv = ctx.saved_tensors
+        return chol_pullback_structured(L, triangular_inverse(L, Inv),
                                         Lbar.contiguous())
 
 
@@ -62,9 +68,10 @@ def add_jitter(K: torch.Tensor, jitter: float) -> torch.Tensor:
     return K + jitter * torch.eye(m, dtype=K.dtype, device=K.device)
 
 
-def triangular_inverse(L: torch.Tensor) -> torch.Tensor:
-    """L^-1 of a lower-triangular [M, M] matrix."""
-    return trsm_lower(L)
+def triangular_inverse(L: torch.Tensor, inv=None) -> torch.Tensor:
+    """L^-1 of a lower-triangular [M, M] matrix; ``inv``, the inverses of
+    its diagonal blocks from ``cholesky_with_inv``, saves recomputing them."""
+    return trsm_lower(L, inv=inv)
 
 
 def solve_lower(L: torch.Tensor, B: torch.Tensor, *,
@@ -122,8 +129,8 @@ class _WhitenSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Kmm, Kmn):
-        L = cholesky(Kmm)
-        Linv = triangular_inverse(L)
+        L, Inv = cholesky_with_inv(Kmm)
+        Linv = triangular_inverse(L, Inv)
         A = Linv @ Kmn
         ctx.save_for_backward(L, Linv, A)
         return A

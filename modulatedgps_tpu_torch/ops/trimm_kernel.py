@@ -24,7 +24,7 @@ fp32 -- on the card and in the plain versions alike.  A float64 product
 ``tri_tt_matmul`` and ``tri_nt_matmul`` take the plain version only for
 CPU tensors; for CUDA tensors they launch the kernel or raise.  Every
 launch adds one to the wrapper's ``launches``.  L and Linv must be
-row-major (ops/linalg.cholesky makes cuSOLVER's factor so).
+row-major (ops/linalg.cholesky writes its factor so).
 """
 from __future__ import annotations
 

@@ -24,8 +24,9 @@ from modulatedgps_tpu.utils import shapes as jshapes
 
 import modulatedgps_tpu_torch as pt
 from modulatedgps_tpu_torch import _native, config, params
-from modulatedgps_tpu_torch.ops import (kl_kernel, kxz_kernel, tril_kernel,
-                                        trimm_kernel, trsm_kernel)
+from modulatedgps_tpu_torch.ops import (chol_kernel, kl_kernel, kxz_kernel,
+                                        quad_kernel, tril_kernel, trimm_kernel,
+                                        trsm_kernel)
 from modulatedgps_tpu_torch.training import fused_adam
 from modulatedgps_tpu_torch.utils.shapes import ShapeChecker, ShapeError
 
@@ -67,7 +68,8 @@ def test_cpu_tensors_launch_nothing():
 
 KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "trsm_lower_t", "tril_fwd_f32",
            "tril_dl", "tril_da", "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
-           "tri_nt_matmul", "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_")
+           "tri_nt_matmul", "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_",
+           "cholesky_factor", "qsqrt_sq_colsum")
 
 
 def test_cpu_train_step_launches_nothing():
@@ -123,11 +125,18 @@ def _grad(*shape, dtype=torch.float32):
                                   "tri_nt_matmul", "kl_sq_logdiag",
                                   "kl_bwd_scale", "adam_tril_",
                                   "tril_fwd_f32", "trsm_lower_t", "tril_dl",
-                                  "tril_da"])
+                                  "tril_da", "cholesky_factor",
+                                  "qsqrt_sq_colsum"])
 def test_cuda_argument_checks_refuse_grad(case):
     bf16 = torch.bfloat16
     with pytest.raises(NotImplementedError, match="autograd Function"):
-        if case == "kl_sq_logdiag":
+        if case == "cholesky_factor":
+            chol_kernel.check_launch_args(torch.eye(4, requires_grad=True))
+        elif case == "qsqrt_sq_colsum":
+            quad_kernel.check_launch_args(
+                torch.zeros(1, 4, 4, dtype=bf16, requires_grad=True),
+                torch.zeros(4, 3, dtype=bf16))
+        elif case == "kl_sq_logdiag":
             kl_kernel.check_launch_args(case, _grad(2, 4, 4))
         elif case == "kl_bwd_scale":
             kl_kernel.check_launch_args(case, torch.zeros(2, 4, 4), _grad(1))
@@ -178,11 +187,20 @@ def test_cuda_argument_checks_accept_grad_tensors_when_not_recording():
                                   "tril_sq_bwd_B16", "trimm", "kl_sq_logdiag",
                                   "kl_bwd_scale_g", "adam_tril_",
                                   "tril_fwd_f32", "trsm_lower_t", "tril_dl",
-                                  "tril_da"])
+                                  "tril_da", "cholesky_factor", "trsm_inv",
+                                  "qsqrt_sq_colsum"])
 def test_cuda_argument_checks_refuse_dtype(case):
     f64 = torch.float64
     with pytest.raises(TypeError):
-        if case == "trsm_lower_t":
+        if case == "cholesky_factor":   # the f64 factor stays on the CPU
+            chol_kernel.check_launch_args(torch.eye(4, dtype=f64))
+        elif case == "trsm_inv":
+            trsm_kernel.check_launch_args(torch.eye(4), None, "trsm_lower",
+                                          torch.zeros(1, 64, 64, dtype=f64))
+        elif case == "qsqrt_sq_colsum":   # bf16, cast by the Function
+            quad_kernel.check_launch_args(torch.zeros(1, 4, 4),
+                                          torch.zeros(4, 3))
+        elif case == "trsm_lower_t":
             trsm_kernel.check_launch_args(torch.eye(4, dtype=f64),
                                           torch.zeros(4, 3, dtype=f64), case)
         elif case == "tril_dl":   # W16 = bf16(dB), cast by atl_matmul
