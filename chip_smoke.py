@@ -16,7 +16,7 @@ Phases, each printing its own lines:
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
   3. the north-star SMGP (M=4096, K=8, D=4, f32) at a seeded, perturbed
-     state: 4 request batches of 8192 through precompute_smgp ->
+     state: 8 request batches of 8192 through precompute_smgp ->
      predict_y / predict_assign / predict_density and 2 through the
      training-path predict_y, with each serving kernel's launch count > 0
      (the Cholesky and the fused q_sqrt quadratic #17 among them);
@@ -64,6 +64,7 @@ Without CUDA it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -142,6 +143,7 @@ M_REF, BATCH_REF = 1024, 2048
 # through chol(Kmm) at the jitter both models are evaluated at.
 JITTER = 1e-4
 UNWHITENED_STEPS = 4
+SERVED_BATCHES = 8
 # Joint sampling: a plotting grid of N_GRID points at full model width,
 # SAMPLE_DRAWS joint draws per expert; its f64 reference at M_REF, N_GRID_REF.
 N_GRID, SAMPLE_DRAWS, N_GRID_REF = 2048, 16, 512
@@ -734,12 +736,18 @@ def chol_quad_rows(rand, dev="cuda"):
                               for j in range(nblk)])
         return float((Inv @ blocks - torch.eye(B, device=dev)).abs().max())
 
-    # --- cholesky_factor: against f64 truth, the kernel's factor within 2x
-    # cuSOLVER's distance (max|L - L64| / max|L64|, + 2 ulps of the
-    # maximum, 2.4e-7) and within 4x of it from the plain version; every
-    # Inv_j L_jj within 3x of the plain version's residual from I (+ 1e-6);
-    # exact zeros above the diagonal; NaN (no exception) from a failed pivot's column on, the
-    # columns before it finite; trsm_lower fed Inv gives the same bits.
+    # --- cholesky_factor: distances as max|X - Y| / max|L64| over the
+    # matrix ("whole") and as max_ij |X - Y|_ij / max_i |L64_ij| (each
+    # column on its own scale, so an error in the late columns, whose
+    # entries are far below max|L64|, is not hidden).  Against f64 truth the
+    # kernel's factor within 2x cuSOLVER's distance (whole, + 2 ulps of the
+    # maximum, 2.4e-7).  Against the plain version, on both scales, within
+    # 2x the plain version's own distance to f64 (+ 2.4e-7): the triangle
+    # inequality's bound when the kernel lands no further from f64 than the
+    # plain version.  Every Inv_j L_jj within 3x of the plain version's
+    # residual from I (+ 1e-6); exact zeros above the diagonal; NaN (no
+    # exception) from a failed pivot's column on, the columns before it
+    # finite; trsm_lower fed Inv gives the same bits.
     def chol_case(label, M, layer, name, record):
         K = north_star_kmm(M, layer)
         L, Inv = chol_kernel.cholesky_factor(K)
@@ -747,18 +755,26 @@ def chol_quad_rows(rand, dev="cuda"):
         Lp, Invp = chol_kernel.cholesky_factor_plain(K)
         L64 = torch.linalg.cholesky(K.double())
         scale = float(L64.abs().max())
-        dist = lambda X: float((X.double() - L64).abs().max()) / scale
-        e_k, e_p, e_lib = dist(L), dist(Lp), dist(torch.linalg.cholesky(K))
-        err = float((L - Lp).abs().max())
+        col_scale = L64.abs().amax(0)
+
+        def dist(X, Y=L64):
+            d = (X.double() - Y.double()).abs()
+            return float(d.max()) / scale, float((d / col_scale).max())
+
+        (e_k, c_k), (e_p, c_p) = dist(L), dist(Lp)
+        e_lib, _ = dist(torch.linalg.cholesky(K))
+        e_kp, c_kp = dist(L, Lp)
+        err = e_kp * scale
         r_k, r_p = inv_residual(L, Inv), inv_residual(Lp, Invp)
         check(finite(L) and finite(Inv) and upper_nonzero(L) == 0
-              and e_k <= 2 * e_lib + 2.4e-7 and err / scale <= 4 * e_lib + 2.4e-7
-              and r_k <= 3 * r_p + 1e-6,
-              f"cholesky_factor {label} M={M} {name} Kmm: vs f64 {e_k:.3e} "
-              f"(cuSOLVER {e_lib:.3e}, plain {e_p:.3e}; <= 2x cuSOLVER), vs "
-              f"plain {err / scale:.3e} (<= 4x cuSOLVER); max|Inv_j L_jj - I| "
-              f"{r_k:.3e} (plain {r_p:.3e}, <= 3x + 1e-6); 0 above the "
-              f"diagonal")
+              and e_k <= 2 * e_lib + 2.4e-7 and e_kp <= 2 * e_p + 2.4e-7
+              and c_kp <= 2 * c_p + 2.4e-7 and r_k <= 3 * r_p + 1e-6,
+              f"cholesky_factor {label} M={M} {name} Kmm: vs f64 whole "
+              f"{e_k:.3e} (cuSOLVER {e_lib:.3e}, plain {e_p:.3e}; <= 2x "
+              f"cuSOLVER), by column {c_k:.3e} (plain {c_p:.3e}); vs plain "
+              f"whole {e_kp:.3e}, by column {c_kp:.3e} (each <= 2x the plain "
+              f"version's to f64); max|Inv_j L_jj - I| {r_k:.3e} (plain "
+              f"{r_p:.3e}, <= 3x + 1e-6); 0 above the diagonal")
         c0 = M // 2
         K_bad = K.clone()
         K_bad[c0, c0] = -1.0
@@ -853,7 +869,8 @@ def chol_quad_rows(rand, dev="cuda"):
 
 def chol_phase_times(K):
     """Device ms of one cholesky_factor call by kernel: the copy, the
-    diagonal tiles, the panels and the trailing updates."""
+    diagonal tiles, the panels, the trailing updates and the block
+    inverses (trsm.cu's diag_inv_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from modulatedgps_tpu_torch.ops import chol_kernel
@@ -864,8 +881,9 @@ def chol_phase_times(K):
         torch.cuda.synchronize()
     phases = {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and "chol_" in ev.key:
-            name = ev.key[ev.key.index("chol_"):].split("(")[0]
+        tag = next((t for t in ("chol_", "diag_inv") if t in ev.key), None)
+        if ev.device_type == DeviceType.CUDA and tag:
+            name = ev.key[ev.key.index(tag):].split("(")[0]
             ms, n = phases.get(name, (0.0, 0))
             phases[name] = (ms + ev.self_device_time_total / 1e3, n + ev.count)
     log(f"  cholesky_factor M={K.shape[0]} by kernel (device ms, launches): "
@@ -1044,7 +1062,30 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH):
+class GcTimes:
+    """A gc.callbacks hook: (generation, ms) of every collection of Python's
+    cyclic garbage collector while it is installed."""
+
+    def __init__(self):
+        self.runs, self._t0 = [], 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.runs.append((info["generation"],
+                              round((time.perf_counter() - self._t0) * 1e3, 3)))
+
+
+def allocator_counts(on_card):
+    """Cumulative cudaMalloc / cudaFree calls and allocation retries of
+    PyTorch's caching allocator (zeros off the card)."""
+    stats = torch.cuda.memory_stats() if on_card else {}
+    return [stats.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                      "num_alloc_retries")]
+
+
+def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH, n_batches=SERVED_BATCHES):
     log(f"== phase 3: serving slice M={M} K={K_EXPERTS} D={D_IN} "
         f"batch={batch} f32")
     arrays, rng = smgp_arrays(M)
@@ -1053,11 +1094,12 @@ def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH):
                                 dtype=torch.float32, device=dev),
                 torch.as_tensor(rng.normal(size=(batch, 1)),
                                 dtype=torch.float32, device=dev))
-               for _ in range(4)]
+               for _ in range(n_batches)]
     sync(dev)
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    gc_times = GcTimes()
     with torch.inference_mode():
         pt.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1065,17 +1107,35 @@ def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH):
         sync(dev)
         t_pre = (time.perf_counter() - t0) * 1e3
         served_out, lat_served, lat_served_y = [], [], []
+        gc.callbacks.append(gc_times)
         for i, (X, Y) in enumerate(batches):
+            # host ms of each call (each ends in a sync), the collector's
+            # runs and the allocator's device calls during the batch: what
+            # a slow batch spent its time on
+            gc_times.runs.clear()
+            alloc0 = allocator_counts(on_card)
             t0 = time.perf_counter()
             mean, var = served.predict_y(X)
             sync(dev)
-            lat_served_y.append((time.perf_counter() - t0) * 1e3)
-            out = (mean[0], var[0], served.predict_assign(X),
-                   served.predict_density(X, Y))
+            t1 = time.perf_counter()
+            pi = served.predict_assign(X)
             sync(dev)
-            lat_served.append((time.perf_counter() - t0) * 1e3)
+            t2 = time.perf_counter()
+            dens = served.predict_density(X, Y)
+            sync(dev)
+            t3 = time.perf_counter()
+            lat_served_y.append((t1 - t0) * 1e3)
+            lat_served.append((t3 - t0) * 1e3)
+            alloc = [b - a for a, b in zip(alloc0, allocator_counts(on_card))]
+            log(f"served batch {i}: {lat_served[-1]:.3f} ms (predict_y "
+                f"{(t1 - t0) * 1e3:.3f}, predict_assign {(t2 - t1) * 1e3:.3f}, "
+                f"predict_density {(t3 - t2) * 1e3:.3f}); gc runs (generation, "
+                f"ms) {gc_times.runs}; cudaMalloc {alloc[0]}, cudaFree "
+                f"{alloc[1]}, allocator retries {alloc[2]}")
+            out = (mean[0], var[0], pi, dens)
             batch_checks(f"served batch {i}", *out)
             served_out.append(out)
+        gc.callbacks.remove(gc_times)
         lat_train = []
         for i, (X, _) in enumerate(batches[:2]):
             t0 = time.perf_counter()
@@ -1177,7 +1237,10 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("kxz_kernel", "kxz (#1)"),
             ("solve_kernel<true>", "trsm transposed (#4)"),
             ("solve_kernel", "trsm (#2)"),
-            ("diag_inv_kernel", "trsm (#2)"), ("chol_", "cholesky (#15/#16)"),
+            # the main paths' solves all take the Cholesky's block inverses,
+            # so diag_inv_kernel runs only as the factor's last launch
+            ("diag_inv_kernel", "cholesky (#15/#16)"),
+            ("chol_", "cholesky (#15/#16)"),
             ("quad_kernel", "q_sqrt quadratic (#17)"),
             ("gemm", "fp32 matmul (cuBLAS)"),
             ("getrf", "cholesky (cuSOLVER)"), ("potrf", "cholesky (cuSOLVER)"),
@@ -1552,13 +1615,42 @@ def phase_multistart(pt, dev="cuda", M=M_REF, batch=BATCH_REF, num_iter=4,
 # whitened one rounds L^-1 Kmn and q_sqrt.  The served variance's q_sqrt
 # term (#17) takes bf16 operands too: the whitened cache rounds q_sqrt,
 # the unwhitened one L^-1 (L q_sqrt), equal to it up to f32 rounding, so
-# entries next to a bf16 boundary round apart; on an H100 80GB HBM3 the
-# two served variances (about 1) lay up to 2.5e-3 apart, hence rtol 1e-2.
+# entries next to a bf16 boundary round apart.  unwhitened_spread(pt,
+# range(8)) on an H100 80GB HBM3 (700 W) put the two served variances
+# 7.6e-4 to 2.08e-3 apart relative over seeds 0-7, the largest at seed 0,
+# this phase's state; rtol 3e-3.
 UNWHITE_TOL = {
-    "served": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (1e-2, 0.0),
+    "served": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (3e-3, 0.0),
                "predict_assign": (1e-3, 1e-3),
                "predict_density": (1e-3, 1e-3)},
     "train": {"predict_y.mean": (1e-3, 2e-3), "predict_y.var": (5e-2, 0.0)}}
+
+
+def unwhitened_spread(pt, seeds, dev="cuda", M=M_FULL, batch=BATCH):
+    """Phase 11's served comparison of the variance over several seeds: for
+    each seed's state, the largest |unwhitened - whitened| / |whitened| of
+    predict_y.var over two batches (the rtol that UNWHITE_TOL's entry needs
+    there)."""
+    worst = []
+    for seed in seeds:
+        arrays, rng = smgp_arrays(M, seed)
+        Xs = [torch.as_tensor(rng.uniform(-3, 3, size=(batch, D_IN)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2)]
+        var = []
+        for whiten in (True, False):
+            leaves = arrays if whiten else unwhitened_arrays(arrays, dev)
+            model = build_model(pt, leaves, dev, torch.float32, jitter=JITTER,
+                                whiten=whiten)
+            with torch.inference_mode():
+                served = pt.precompute_smgp(model)
+                var.append([served.predict_y(X)[1][0] for X in Xs])
+            del model, served
+        worst.append(max(float(((u - w).abs() / w.abs()).max())
+                         for w, u in zip(*var)))
+        log(f"seed {seed}: served predict_y.var, unwhitened against "
+            f"whitened, largest relative difference {worst[-1]:.3e}")
+    return worst
 
 
 def compare_outputs(label, got, want, tol):

@@ -28,15 +28,17 @@
 //       dynamic loop bounds visit): 256 threads, each a 4x4 register tile
 //       fed by float4 loads from the two operands staged transposed in
 //       shared memory.
-// After the loop, chol_inv_kernel inverts every diagonal block at once by
-// column-oriented substitution, with each entry's FMAs in the order of
-// trsm.cu's diag_inv_kernel (so Inv_j is what that kernel would write on
-// L).  A ragged M is padded with the identity inside (a) and the inverse
-// (the pad never reaches L; the last Inv block is padded as diag_inv_kernel
-// pads it) and masked in (b) and (c).  A pivot that is not positive (or NaN)
+// After the loop, trsm.cu's own diag_inv_kernel (through mgp_diag_inv)
+// inverts every diagonal block at once, off the critical path, so Inv is by
+// construction what a solve would compute from L.  A ragged M is padded with
+// the identity inside (a) and the inverse (the pad never reaches L) and
+// masked in (b) and (c).  A pivot that is not positive (or NaN)
 // becomes NaN, which then fills every later column, as
 // jnp.linalg.cholesky gives NaN: no host sync reads an info code.
 #include <cuda_runtime.h>
+
+// trsm.cu: the inverses of L's 64x64 diagonal blocks, its solves' first launch.
+extern "C" int mgp_diag_inv(const void* L, void* inv, int M, void* stream);
 
 namespace {
 
@@ -112,65 +114,6 @@ chol_diag_kernel(float* __restrict__ L, int M, int j) {
   }
 }
 
-// Inv_j for every diagonal block j = blockIdx.x of the finished L, the
-// blocks in parallel, off the factorization's critical path.  Column
-// steps: at step p row p of every column is final, x[p][c] = acc /
-// L[p][p], and each later row folds it in, acc[i][c] = fma(-L[i][p],
-// x[p][c], acc[i][c]).  For each entry these are the FMAs of trsm.cu's
-// diag_inv_kernel row loop, in the same order, on the same tile (a ragged
-// tail padded with the identity), so Inv_j has its bits.
-__global__ void __launch_bounds__(NT)
-chol_inv_kernel(const float* __restrict__ L, float* __restrict__ Inv, int M) {
-  __shared__ float s[BS][BS + 1];
-  __shared__ float x[BS][BS + 1];
-  const int j = blockIdx.x;
-  const int base = j * BS;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  for (int e = tid; e < BS * BS; e += NT) {
-    const int i = e / BS, c = e % BS;
-    const int r = base + i, cc = base + c;
-    float v;
-    if (r < M && cc < M) v = (c <= i) ? L[(size_t)r * M + cc] : 0.f;
-    else v = (i == c) ? 1.f : 0.f;
-    s[i][c] = v;
-  }
-  __syncthreads();
-  float acc[4][4];
-#pragma unroll
-  for (int ia = 0; ia < 4; ++ia)
-#pragma unroll
-    for (int cb = 0; cb < 4; ++cb)
-      acc[ia][cb] = (ty + 16 * ia == tx + 16 * cb) ? 1.f : 0.f;
-  for (int p = 0; p < BS; ++p) {
-    if (ty == p % 16) {
-      const int ia = p / 16;
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb) {
-        const int c = tx + 16 * cb;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)   // static register index
-          if (q == ia) x[p][c] = (p >= c) ? acc[q][cb] / s[p][p] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ia = 0; ia < 4; ++ia) {
-      const int i = ty + 16 * ia;
-      if (i <= p) continue;
-      const float lip = s[i][p];
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb) {
-        const int c = tx + 16 * cb;
-        if (c <= p) acc[ia][cb] = fmaf(-lip, x[p][c], acc[ia][cb]);
-      }
-    }
-  }
-  __syncthreads();
-  float* inv = Inv + (size_t)j * BS * BS;
-  for (int e = tid; e < BS * BS; e += NT) inv[e] = x[e / BS][e % BS];
-}
-
 // C -= A B^T for [64, 64] tiles: A's and C's rows past rows_a and B's rows
 // (C's columns) past rows_b read as 0 and are not written.
 __device__ __forceinline__ void tile_sub_nt(const float* __restrict__ A, int lda,
@@ -213,8 +156,7 @@ __device__ __forceinline__ void tile_sub_nt(const float* __restrict__ A, int lda
 }
 
 // Block row i = j + 1 + blockIdx.x: P_ij L_jj^T = A_ij by substitution, in
-// place.  Column steps as in chol_inv_kernel: at step c column c of P is
-// final, P[r][c] = acc * (1 / L[c][c]), and each later column folds it in,
+// place.  Column steps: at step c column c of P is final, P[r][c] = acc * (1 / L[c][c]), and each later column folds it in,
 // acc[r][c'] = fma(-P[r][c], L[c'][c], acc[r][c']).
 __global__ void __launch_bounds__(NT)
 chol_panel_kernel(float* __restrict__ L, int M, int j) {
@@ -291,7 +233,6 @@ extern "C" int mgp_cholesky(const void* A, void* L, void* Inv, int M, void* stre
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0) return static_cast<int>(cudaGetLastError());
   float* l = static_cast<float*>(L);
-  float* inv = static_cast<float*>(Inv);
   const size_t total = (size_t)M * M;
   const int grid = (int)((total + NT - 1) / NT < 4096 ? (total + NT - 1) / NT : 4096);
   chol_copy_kernel<<<grid, NT, 0, s>>>(static_cast<const float*>(A), l, M);
@@ -306,9 +247,6 @@ extern "C" int mgp_cholesky(const void* A, void* L, void* Inv, int M, void* stre
     }
     err = cudaGetLastError();
   }
-  if (err == cudaSuccess) {
-    chol_inv_kernel<<<nblk, NT, 0, s>>>(l, inv, M);
-    err = cudaGetLastError();
-  }
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return mgp_diag_inv(l, Inv, M, stream);
 }

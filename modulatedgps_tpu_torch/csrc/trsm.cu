@@ -17,7 +17,8 @@
 // HIGHEST.  Design, two launches:
 //   (a) one CUDA block per 64x64 diagonal block inverts it by substitution
 //       in shared memory (a ragged tail is padded with the identity); a
-//       caller holding the inverses from the Cholesky (chol.cu) skips it;
+//       caller holding the inverses from the Cholesky (chol.cu, which
+//       launches this same kernel through mgp_diag_inv) skips it;
 //   (b) one CUDA block per TW-column strip of B walks the block rows in
 //       order: acc = B_k - sum_{j<k} L_kj X_j, then X_k = Inv_kk acc.
 //       The TPU's sequential fori_loop over row blocks becomes this in-block
@@ -178,20 +179,28 @@ solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
 
 }  // namespace
 
+// Inv [ceil(M / 64), 64, 64], the inverses of the 64x64 diagonal blocks of L
+// [M, M] lower (upper triangle ignored), the last block of a ragged M padded
+// with the identity: the solves' first launch, and chol.cu's last.
+extern "C" int mgp_diag_inv(const void* L, void* inv, int M, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M > 0)
+    diag_inv_kernel<<<(M + BS - 1) / BS, BS, 0, s>>>(static_cast<const float*>(L),
+                                                     static_cast<float*>(inv), M);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // L [M, M] lower (upper triangle ignored), B [M, Nb], X [M, Nb], inv
 // [ceil(M / 64), 64, 64]; all fp32 on the device.  With unit_rhs the right
 // side is the identity (Nb == M) and B may be null.  With inv_given, inv
-// already holds the diagonal-block inverses (chol.cu writes them) and (a) is
-// skipped; otherwise it is scratch that (a) fills.
+// already holds the diagonal-block inverses (the Cholesky writes them) and
+// (a) is skipped; otherwise it is scratch that (a) fills.
 extern "C" int mgp_trsm_lower(const void* L, void* inv, const void* B, void* X,
                               int M, int Nb, int unit_rhs, int inv_given,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && Nb > 0) {
-    const int nblk = (M + BS - 1) / BS;
-    if (!inv_given)
-      diag_inv_kernel<<<nblk, BS, 0, s>>>(static_cast<const float*>(L),
-                                          static_cast<float*>(inv), M);
+    if (!inv_given) mgp_diag_inv(L, inv, M, stream);
     solve_kernel<false><<<(Nb + TW - 1) / TW, NT, 0, s>>>(
         static_cast<const float*>(L), static_cast<const float*>(inv),
         static_cast<const float*>(B), static_cast<float*>(X), M, Nb, unit_rhs);
@@ -205,10 +214,7 @@ extern "C" int mgp_trsm_lower_t(const void* L, void* inv, const void* B, void* X
                                 int M, int Nb, int inv_given, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M > 0 && Nb > 0) {
-    const int nblk = (M + BS - 1) / BS;
-    if (!inv_given)
-      diag_inv_kernel<<<nblk, BS, 0, s>>>(static_cast<const float*>(L),
-                                          static_cast<float*>(inv), M);
+    if (!inv_given) mgp_diag_inv(L, inv, M, stream);
     solve_kernel<true><<<(Nb + TW - 1) / TW, NT, 0, s>>>(
         static_cast<const float*>(L), static_cast<const float*>(inv),
         static_cast<const float*>(B), static_cast<float*>(X), M, Nb, 0);

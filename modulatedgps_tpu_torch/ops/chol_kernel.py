@@ -7,17 +7,18 @@ variant, _chol_pallas_large); on the TPU they were two kernels only because
 of VMEM.  The kernel is csrc/chol.cu: a right-looking blocked factorization
 with 64-wide blocks in fp32 FMAs, one C call per factorization that loops
 over the block columns and launches, for each, a diagonal-tile kernel
-(factor and invert the tile in shared memory), a panel kernel (P_ij L_jj^T =
-A_ij by substitution; the TPU kernel's A_ij Inv_j^T loses accuracy on an
+(factor the tile in shared memory), a panel kernel (P_ij L_jj^T = A_ij by
+substitution; the TPU kernel's A_ij Inv_j^T loses accuracy on an
 ill-conditioned Kmm such as the assignment layer's) and a trailing-update
-kernel over the lower tiles (A_ik -= P_ij P_kj^T).  Its critical path is the
-chain of 64-step diagonal tiles.
+kernel over the lower tiles (A_ik -= P_ij P_kj^T), then trsm.cu's
+diagonal-block inverse on the finished L.  Its critical path is the chain
+of 64-step diagonal tiles.
 
 L is row-major with exact zeros above the diagonal.  Inv is [ceil(M/64),
-64, 64], the last block of a ragged M padded with the identity, exactly
-what trsm.cu's first launch would compute from L: ``trsm_lower(L, B,
-inv=Inv)`` skips that launch (the JAX package's ``_trsm_pallas_raw(L, Inv,
-B)``).  A pivot that is not positive gives NaN from its column on, as
+64, 64], the last block of a ragged M padded with the identity: trsm.cu's
+first launch, run once here, so ``trsm_lower(L, B, inv=Inv)`` and
+``trsm_lower_t(L, B, inv=Inv)`` skip it (the JAX package's
+``_trsm_pallas_raw(L, Inv, B)``).  A pivot that is not positive gives NaN from its column on, as
 ``jnp.linalg.cholesky`` gives NaN; nothing raises and nothing reads an
 info code back to the host.
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .linalg import cholesky, solve_lower, whiten_solve
+from .linalg import cholesky_with_inv, solve_lower, whiten_solve
 from .tril_kernel import atl_matmul, atl_sq_colsum
 
 __all__ = ["base_conditional", "conditional_from_chol",
@@ -65,26 +65,30 @@ def base_conditional(Kmn, Kmm, Knn, q_mu, *, q_sqrt=None,
     if white:
         return _conditional_tail(whiten_solve(Kmm, Kmn), None, Knn, q_mu,
                                  q_sqrt=q_sqrt, full_cov=full_cov, white=True)
-    return conditional_from_chol(Kmn, cholesky(Kmm), Knn, q_mu, q_sqrt=q_sqrt,
-                                 full_cov=full_cov, white=False)
+    Lm, inv = cholesky_with_inv(Kmm)
+    return conditional_from_chol(Kmn, Lm, Knn, q_mu, q_sqrt=q_sqrt,
+                                 full_cov=full_cov, white=False, inv=inv)
 
 
 def conditional_from_chol(Kmn, Lm, Knn, q_mu, *, q_sqrt=None,
-                          full_cov: bool = False, white: bool = True):
-    """base_conditional with the Cholesky factor Lm of Kmm given."""
-    return _conditional_tail(solve_lower(Lm, Kmn), Lm, Knn, q_mu,
-                             q_sqrt=q_sqrt, full_cov=full_cov, white=white)
+                          full_cov: bool = False, white: bool = True,
+                          inv=None):
+    """base_conditional with the Cholesky factor Lm of Kmm given (and
+    ``inv``, the inverses of its diagonal blocks, if the caller has them)."""
+    return _conditional_tail(solve_lower(Lm, Kmn, inv=inv), Lm, Knn, q_mu,
+                             q_sqrt=q_sqrt, full_cov=full_cov, white=white,
+                             inv=inv)
 
 
-def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white):
+def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white, inv=None):
     """Everything downstream of the whitened feature map A = Lm^-1 Kmn; Lm
-    is read only for the unwhitened second solve."""
+    (and inv) are read only for the unwhitened second solve."""
     if full_cov:
         fvar = Knn - A.T @ A                                   # [N, N]
     else:
         fvar = Knn - A.square().sum(-2)                        # [N]
     if not white:
-        A = solve_lower(Lm, A, trans=True)                     # Lm^-T A
+        A = solve_lower(Lm, A, trans=True, inv=inv)            # Lm^-T A
     fmean = A.T @ q_mu                                         # [N, K]
     K = q_mu.shape[-1]
     if q_sqrt is None:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from .kl_kernel import kl_bwd_scale, kl_sq_logdiag
-from .linalg import cholesky, solve_lower
+from .linalg import cholesky_with_inv, solve_lower
 
 __all__ = ["gauss_kl"]
 
@@ -87,16 +87,16 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
             return _WhitenedTrilKL.apply(q_mu, Lq, routed)
         return 0.5 * (q_mu.square().sum() - M * K
                       - 2.0 * torch.log(q_sqrt).sum() + q_sqrt.square().sum())
-    Lp = cholesky(Kmm)
-    mahalanobis = solve_lower(Lp, q_mu).square().sum()
+    Lp, inv = cholesky_with_inv(Kmm)
+    mahalanobis = solve_lower(Lp, q_mu, inv=inv).square().sum()
     if Lq is None:
         logdet_q = 2.0 * torch.log(q_sqrt).sum()
         eye = torch.eye(M, dtype=Kmm.dtype, device=Kmm.device)
-        Kinv_diag = solve_lower(Lp, eye).square().sum(0)       # diag Kmm^-1
+        Kinv_diag = solve_lower(Lp, eye, inv=inv).square().sum(0)  # diag Kmm^-1
         trace = (Kinv_diag[:, None] * q_sqrt.square()).sum()
     else:
         logdet_q = 2.0 * torch.log(
             torch.diagonal(Lq, dim1=-2, dim2=-1).abs()).sum()
-        trace = solve_lower(Lp, Lq).square().sum()
+        trace = solve_lower(Lp, Lq, inv=inv).square().sum()
     logdet_p = 2.0 * torch.log(torch.diagonal(Lp)).sum()
     return 0.5 * (mahalanobis - M * K - logdet_q + trace + K * logdet_p)

@@ -13,7 +13,8 @@ their plain versions on the CPU).  Three autograd Functions:
   trimm_kernel.chol_pullback_structured;
 - ``solve_lower``: exact blocked substitution, L^-1 B or L^-T B, with the
   pullback of pallas_linalg.solve_triangular_blocked (:499-510), whose
-  B-cotangent is the other-way solve;
+  B-cotangent is the other-way solve; both take the factor's diagonal-block
+  inverses when the caller has them;
 - ``whiten_solve``: the whitened feature map A = chol(Kmm)^-1 Kmn formed as
   Linv @ Kmn, the JAX package's fast-solves form (one substitution for the
   [M, M] inverse, then one large matmul), with its composite pullback
@@ -74,16 +75,19 @@ def triangular_inverse(L: torch.Tensor, inv=None) -> torch.Tensor:
     return trsm_lower(L, inv=inv)
 
 
-def solve_lower(L: torch.Tensor, B: torch.Tensor, *,
-                trans: bool = False) -> torch.Tensor:
+def solve_lower(L: torch.Tensor, B: torch.Tensor, *, trans: bool = False,
+                inv=None) -> torch.Tensor:
     """L^-1 B, or L^-T B with ``trans``, by blocked substitution,
     differentiable in L and B.  L [M, M] (upper triangle ignored); B
-    [M, Nb], or [K, M, Nb], solved as one [M, K*Nb] right side."""
+    [M, Nb], or [K, M, Nb], solved as one [M, K*Nb] right side.  ``inv``,
+    the inverses of L's diagonal blocks from ``cholesky_with_inv``, saves
+    recomputing them in the solve and in its pullback."""
     if B.ndim == 3:
         K, M, Nb = B.shape
-        X = _SolveLower.apply(L, B.permute(1, 0, 2).reshape(M, K * Nb), trans)
+        X = _SolveLower.apply(L, B.permute(1, 0, 2).reshape(M, K * Nb), trans,
+                              inv)
         return X.reshape(M, K, Nb).permute(1, 0, 2)
-    return _SolveLower.apply(L, B, trans)
+    return _SolveLower.apply(L, B, trans, inv)
 
 
 class _SolveLower(torch.autograd.Function):
@@ -93,22 +97,22 @@ class _SolveLower(torch.autograd.Function):
     to XLA."""
 
     @staticmethod
-    def forward(ctx, L, B, trans):
-        X = (trsm_lower_t if trans else trsm_lower)(L, B.contiguous())
+    def forward(ctx, L, B, trans, inv):
+        X = (trsm_lower_t if trans else trsm_lower)(L, B.contiguous(), inv=inv)
         ctx.trans = trans
-        ctx.save_for_backward(L, X)
+        ctx.save_for_backward(L, X, inv)
         return X
 
     @staticmethod
     def backward(ctx, Xbar):
-        L, X = ctx.saved_tensors
+        L, X, inv = ctx.saved_tensors
         Xbar = Xbar.contiguous()
-        Bbar = (trsm_lower if ctx.trans else trsm_lower_t)(L, Xbar)
+        Bbar = (trsm_lower if ctx.trans else trsm_lower_t)(L, Xbar, inv=inv)
         Lbar = None
         if ctx.needs_input_grad[0]:
             G = X @ Bbar.T if ctx.trans else Bbar @ X.T
             Lbar = torch.tril(G).neg_()
-        return Lbar, Bbar if ctx.needs_input_grad[1] else None, None
+        return Lbar, Bbar if ctx.needs_input_grad[1] else None, None, None
 
 
 def whiten_solve(Kmm: torch.Tensor, Kmn: torch.Tensor) -> torch.Tensor:

@@ -131,6 +131,43 @@ def test_trsm_fed_the_factor_inverses_matches_recomputing_them():
                        linalg.triangular_inverse(L))
 
 
+def test_unwhitened_solves_are_fed_the_factor_inverses():
+    """The unwhitened conditional and KL hand the Cholesky's diagonal-block
+    inverses to every solve, forward and backward, so no solve on that path
+    recomputes them."""
+    rng = np.random.default_rng(7)
+    M, N, K = 150, 40, 2
+    Kmm = torch.as_tensor(_spd(M, seed=7, dtype=np.float64)).requires_grad_()
+    Kmn = torch.as_tensor(0.3 * rng.normal(size=(M, N))).requires_grad_()
+    Knn = torch.as_tensor(2.0 + rng.uniform(size=N))
+    q_mu = torch.as_tensor(rng.normal(size=(M, K))).requires_grad_()
+    q_sqrt = torch.as_tensor(np.tril(0.1 * rng.normal(size=(K, M, M)))
+                             + np.eye(M)).requires_grad_()
+    seen = []
+
+    def recording(fn):
+        def solve(L, B=None, *, inv=None):
+            seen.append(None if inv is None else tuple(inv.shape))
+            return fn(L, B, inv=inv)
+        return solve
+
+    from modulatedgps_tpu_torch.ops import kl
+    with mock.patch.object(linalg, "trsm_lower",
+                           recording(trsm_kernel.trsm_lower)), \
+            mock.patch.object(linalg, "trsm_lower_t",
+                              recording(trsm_kernel.trsm_lower_t)):
+        mean, var = tc.base_conditional(Kmn, Kmm, Knn, q_mu, q_sqrt=q_sqrt,
+                                        white=False)
+        loss = (mean.sum() + var.sum()
+                + kl.gauss_kl(q_mu, q_sqrt, Kmm, assume_tril=True))
+        loss.backward()
+    # conditional: 2 solves + 2 pullback solves; KL: 2 + 2; the two
+    # Cholesky pullbacks' inverses
+    assert len(seen) == 10
+    assert all(s == (3, 64, 64) for s in seen)
+    assert all(torch.isfinite(t.grad).all() for t in (Kmm, Kmn, q_mu, q_sqrt))
+
+
 class _OnTheCard:
     """Stands in for a CUDA tensor: the launcher's checks read its device,
     dtype, shape, layout and grad flag, then hand its pointer on."""
