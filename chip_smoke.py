@@ -4,6 +4,11 @@ posterior sampling, the unwhitened SMGP and the joint posterior's gradient
 once on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
+    python3 chip_smoke.py --against DIR   # only the build and the A/B below
+
+With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
+builds both, times the Cholesky and the tril forward of the two in turns
+on the same inputs and compares their outputs, and prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -373,9 +378,13 @@ def phase_kernels():
     rows["trsm_lower"] = trsm_case("main", M_FULL, None, True)
 
     # --- tril_sq_fwd: rtol 2e-2, atol 1e-2 * max (tests/test_pallas_tril.py).
+    # L carries garbage and NaN above its diagonal.  The kernel's TMA needs
+    # 8-aligned rows: N=77 takes the padded A, M=197 the padded L too, and
+    # M=136, N=264 and the main shape neither.
     def tril_case(label, M, N, K, record):
         A = rand(M, N, scale=1 / math.sqrt(M))
-        L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M))  # upper garbage
+        L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M)  # upper garbage
+             + nan_above(K, M, dev))
         A16, L16 = A.to(torch.bfloat16), L.to(torch.bfloat16)
         got = tril_kernel.tril_sq_fwd(A16, L16)
         torch.cuda.synchronize()
@@ -389,7 +398,7 @@ def phase_kernels():
         check(bad == 0 and e_bad == 0,
               f"tril_sq_fwd {label} M={M} N={N} K={K}: B16 max_abs_err "
               f"{err:.3e} ({bad} outside), extra max_abs_err {e_err:.3e} "
-              f"({e_bad} outside)")
+              f"({e_bad} outside), NaN above L's diagonal")
         if record:
             ms, plain_ms, lib_ms = cuda_ms(
                 [lambda: tril_kernel.tril_sq_fwd(A16, L16),
@@ -405,8 +414,9 @@ def phase_kernels():
                     "library_ms": lib_ms}
         return None
 
-    tril_case("ragged", 200, 77, 3, False)
-    tril_case("ragged", 136, 264, 2, False)
+    tril_case("ragged, padded A", 200, 77, 3, False)
+    tril_case("ragged, aligned", 136, 264, 2, False)
+    tril_case("ragged, padded A and L", 197, 333, 2, False)
     rows["tril_sq_fwd"] = tril_case("main", M_FULL, BATCH, K_EXPERTS, True)
 
     # --- tril_sq_dl / tril_sq_da: 1e-3 of the largest magnitude (rtol and
@@ -568,7 +578,8 @@ def phase_kernels():
     # m-run would move entries by a sizeable fraction.
     def tril_f32_case(label, M, N, K, record):
         A = rand(M, N, scale=1 / math.sqrt(M))
-        L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M))  # upper garbage
+        L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M)  # upper garbage
+             + nan_above(K, M, dev))
         A16, L16 = A.to(torch.bfloat16), L.to(torch.bfloat16)
         got = tril_kernel.tril_fwd_f32(A16, L16)
         torch.cuda.synchronize()
@@ -577,7 +588,8 @@ def phase_kernels():
         err, bad = allclose_report(got, want, 1e-4, 1e-4 * scale)
         check(bad == 0 and got.dtype == torch.float32,
               f"tril_fwd_f32 {label} M={M} N={N} K={K}: max_abs_err {err:.3e} "
-              f"of max {scale:.3e} ({bad} outside rtol 1e-4, atol 1e-4 max)")
+              f"of max {scale:.3e} ({bad} outside rtol 1e-4, atol 1e-4 max), "
+              f"NaN above L's diagonal")
         if not record:
             return None
         Lt16 = torch.tril(L16)
@@ -710,20 +722,9 @@ def trsm_t_tril_w_rows(rand, spd_chol):
 def chol_quad_rows(rand, dev="cuda"):
     """Phase 2's rows for the blocked Cholesky (#15/#16) and the fused q_sqrt
     quadratic (#17)."""
-    from modulatedgps_tpu_torch.ops import (chol_kernel, kxz_kernel,
-                                            quad_kernel, trsm_kernel)
+    from modulatedgps_tpu_torch.ops import chol_kernel, quad_kernel, trsm_kernel
     dev = torch.device(dev)
     rows = {}
-
-    def north_star_kmm(M, layer):
-        """K(Z, Z) + JITTER I of a north-star layer (SE (variance,
-        lengthscale)), Z ~ N(0, 1) as smgp_arrays draws it, in f32."""
-        var, ls = layer
-        Z = torch.as_tensor(np.random.default_rng(M).normal(size=(M, D_IN)),
-                            dtype=torch.float32, device=dev)
-        return (kxz_kernel.kxz_plain(Z, Z, torch.tensor(ls, device=dev),
-                                     torch.tensor(var, device=dev))
-                + JITTER * torch.eye(M, device=dev))
 
     def inv_residual(L, Inv):
         """max_j |Inv_j L_jj - I| over the diagonal blocks, L padded with
@@ -749,7 +750,7 @@ def chol_quad_rows(rand, dev="cuda"):
     # exception) from a failed pivot's column on, the columns before it
     # finite; trsm_lower fed Inv gives the same bits.
     def chol_case(label, M, layer, name, record):
-        K = north_star_kmm(M, layer)
+        K = north_star_kmm(M, layer, dev)
         L, Inv = chol_kernel.cholesky_factor(K)
         torch.cuda.synchronize()
         Lp, Invp = chol_kernel.cholesky_factor_plain(K)
@@ -819,7 +820,8 @@ def chol_quad_rows(rand, dev="cuda"):
         row = chol_case("main", M, PRED_SE, "pred", True)
         log(f"  cholesky_factor M={M} row: {json.dumps(row)}")
     rows["cholesky_factor"] = row
-    chol_phase_times(north_star_kmm(M_FULL, PRED_SE))
+    for M in (M_REF, M_FULL):
+        chol_phase_times(north_star_kmm(M, PRED_SE, dev))
 
     # --- qsqrt_sq_colsum: rtol 1e-4, atol 1e-5 of the largest output
     # against its plain version (both multiply the same bf16 operands
@@ -867,10 +869,24 @@ def chol_quad_rows(rand, dev="cuda"):
     return rows
 
 
+def north_star_kmm(M, layer, dev="cuda"):
+    """K(Z, Z) + JITTER I of a north-star layer (SE (variance,
+    lengthscale)), Z ~ N(0, 1) as smgp_arrays draws it, in f32."""
+    from modulatedgps_tpu_torch.ops import kxz_kernel
+    var, ls = layer
+    Z = torch.as_tensor(np.random.default_rng(M).normal(size=(M, D_IN)),
+                        dtype=torch.float32, device=dev)
+    return (kxz_kernel.kxz_plain(Z, Z, torch.tensor(ls, device=dev),
+                                 torch.tensor(var, device=dev))
+            + JITTER * torch.eye(M, device=dev))
+
+
 def chol_phase_times(K):
     """Device ms of one cholesky_factor call by kernel: the copy, the
-    diagonal tiles, the panels, the trailing updates and the block
-    inverses (trsm.cu's diag_inv_kernel)."""
+    persistent task-graph kernel (diagonal tiles, panels and trailing
+    updates) and the block inverses (trsm.cu's diag_inv_kernel), and the
+    number of launches; then, from the task graph's own trace (one more
+    call), its CTA-time by task type and waiting."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from modulatedgps_tpu_torch.ops import chol_kernel
@@ -887,7 +903,24 @@ def chol_phase_times(K):
             ms, n = phases.get(name, (0.0, 0))
             phases[name] = (ms + ev.self_device_time_total / 1e3, n + ev.count)
     log(f"  cholesky_factor M={K.shape[0]} by kernel (device ms, launches): "
-        + ", ".join(f"{k} {ms:.4f} ({n})" for k, (ms, n) in phases.items()))
+        + ", ".join(f"{k} {ms:.4f} ({n})" for k, (ms, n) in phases.items())
+        + f"; {sum(n for _, n in phases.values())} launches a factorization")
+    trace = torch.tensor(chol_kernel.TRACE_INIT, dtype=torch.int64,
+                         device=K.device)
+    chol_kernel.cholesky_factor(K, trace=trace)
+    torch.cuda.synchronize()
+    t = chol_kernel.trace_summary(trace)
+    busy = {name: t[f"{name}_ms"] for name in ("diag", "panel", "update")}
+    total = t["wait_ms"] + sum(busy.values())
+    log(f"  chol_dag_kernel M={K.shape[0]} by task (device clock, CTA-ms summed "
+        f"over {total / t['span_ms']:.0f} CTAs over a {t['span_ms']:.4f} ms "
+        f"span): waiting {t['wait_ms']:.3f} ({t['wait_ms'] / total:.1%}), "
+        + ", ".join(f"{name} {ms:.3f} ({ms / total:.1%}; {t[name]} tasks, "
+                    f"{1e3 * ms / max(t[name], 1):.2f} us each)"
+                    for name, ms in busy.items())
+        + "; a diagonal task's parts (us each): "
+        + ", ".join(f"{name} {1e3 * t[f'{name}_ms'] / max(t['diag'], 1):.2f}"
+                    for name in chol_kernel.DIAG_PARTS))
 
 
 def nan_above(K, M, dev):
@@ -1274,6 +1307,16 @@ def profile_step(step, model, gen, X, Y, top=12):
     solver = [key for _, _, key in rows if "potrf" in key or "getrf" in key]
     check(not solver, f"no cuSOLVER factorization in the profiled step "
           f"({len(solver)} kernels: {[k[:60] for k in solver[:3]]})")
+    # The Cholesky and the tril forward ran as this repo's kernels, and no
+    # library GEMM in bf16 (where a tril forward would land) ran.
+    ours = {sub: sum(n for _, n, key in rows if sub in key)
+            for sub in ("chol_dag_kernel", "tril_fwd_kernel")}
+    bf16_gemm = [key for _, _, key in rows
+                 if "gemm" in key.lower() and "bf16" in key.lower()]
+    check(all(ours.values()) and not bf16_gemm,
+          f"the profiled step ran the Cholesky and the tril forward as "
+          f"csrc kernels (launches {ours}) and no bf16 library GEMM "
+          f"({[k[:60] for k in bf16_gemm[:3]]})")
 
 
 def phase_train(pt, dev="cuda", M=M_FULL, batch=BATCH, steps=TRAIN_STEPS):
@@ -1942,6 +1985,65 @@ def phase_joint_grad_reference(pt, dev="cuda", M=M_REF, N=N_GRID_REF,
     return rels
 
 
+def phase_against(parent: str) -> None:
+    """The Cholesky (#15/#16) and the tril forward (#3/#5) of this checkout
+    against those of another one (``parent``, e.g. a checkout of the parent
+    commit), both packages loaded in this process: CUDA-event medians at
+    the main shapes, timed in turns (parent, this, this, parent) over the
+    same inputs, the factors compared bit for bit and the tril outputs
+    against each other."""
+    import importlib
+    import importlib.util
+    from modulatedgps_tpu_torch.ops import chol_kernel, tril_kernel
+    root = Path(parent).resolve() / "modulatedgps_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    sys.modules["parent_port"] = module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    p_native = importlib.import_module("parent_port._native")
+    path, seconds = p_native.build()
+    p_native.library()
+    log(f"== against {parent}: its build {seconds:.1f} s -> {path.name}")
+    pchol = importlib.import_module("parent_port.ops.chol_kernel")
+    ptril = importlib.import_module("parent_port.ops.tril_kernel")
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def turns(what, parent_fn, this_fn, reps):
+        p1, t1, t2, p2 = cuda_ms([parent_fn, this_fn, this_fn, parent_fn], reps)
+        log(f"  {what}: parent {p1:.4f} / {p2:.4f} ms, this {t1:.4f} / "
+            f"{t2:.4f} ms (parent, this, this, parent; {reps} turns)")
+
+    for M in (M_REF, M_FULL):
+        for name, layer in (("assign", ASSIGN_SE), ("pred", PRED_SE)):
+            K = north_star_kmm(M, layer)
+            (Lp, Ip), (L, Inv) = pchol.cholesky_factor(K), chol_kernel.cholesky_factor(K)
+            torch.cuda.synchronize()
+            check(torch.equal(L, Lp) and torch.equal(Inv, Ip),
+                  f"cholesky_factor M={M} {name} Kmm: L and Inv bit-equal to "
+                  f"the parent's (max |dL| {float((L - Lp).abs().max()):.3e})")
+        turns(f"cholesky_factor M={M} pred Kmm", lambda: pchol.cholesky_factor(K),
+              lambda: chol_kernel.cholesky_factor(K), 10)
+    for what, N, this_fn, parent_fn in (
+            ("tril_sq_fwd", BATCH, tril_kernel.tril_sq_fwd, ptril.tril_sq_fwd),
+            ("tril_fwd_f32", N_GRID, tril_kernel.tril_fwd_f32,
+             ptril.tril_fwd_f32)):
+        M = M_FULL
+        A16 = (torch.randn(M, N, generator=g) / math.sqrt(M)).to(dev, torch.bfloat16)
+        L16 = (torch.eye(M) + 0.05 * torch.randn(K_EXPERTS, M, M, generator=g)
+               ).to(dev, torch.bfloat16)
+        got, want = this_fn(A16, L16), parent_fn(A16, L16)
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        check(diff <= 1e-2 * scale, f"{what} M={M} N={N} K={K_EXPERTS}: "
+              f"max |this - parent| {diff:.3e} of max {scale:.3e}")
+        turns(f"{what} M={M} N={N} K={K_EXPERTS}",
+              lambda: parent_fn(A16, L16), lambda: this_fn(A16, L16), 5)
+        del A16, L16, got, want
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1952,6 +2054,11 @@ def main() -> int:
     from modulatedgps_tpu_torch import _native
 
     phase_device_and_build(_native)
+    if sys.argv[1:2] == ["--against"]:
+        phase_against(sys.argv[2])
+        for f in failures:
+            print(f"chip_smoke: failed: {f}", file=sys.stderr)
+        return 1 if failures else 0
     rows = phase_kernels()
     served = phase_slice(pt)
     ref_counts = phase_reference(pt)

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _P),
-    "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_dl_w": (_P, _P, _P, _I, _I, _I, _P),
@@ -47,7 +47,7 @@ _SIGNATURES = {
     "mgp_kl_bwd": (_P, _P, _P, _I, _I, _P),
     "mgp_adam_tril": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                       _P),
-    "mgp_cholesky": (_P, _P, _P, _I, _P),
+    "mgp_cholesky": (_P, _P, _P, _P, _P, _I, _P),
     "mgp_qsqrt_sq_colsum": (_P, _P, _P, _I, _I, _I, _P),
 }
 

@@ -57,8 +57,20 @@ class PrecomputedPosterior(nn.Module):
         self.register_buffer("S", None if f32 else S)
         self.register_buffer("S16", S.to(torch.bfloat16) if f32 else None)
 
-    def predict_f(self, Xnew: torch.Tensor, *, full_output_cov: bool = False):
-        """Marginal posterior mean and variance at Xnew [N, D]: ([N, K] x2)."""
+    def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False,
+                  full_output_cov: bool = False):
+        """Marginal posterior mean and variance at Xnew [..., N, D]:
+        ([..., N, K] x2).  The leading dimensions are flattened into one
+        batch of points and restored on the outputs.  ``full_cov`` is not
+        served from the cache (the JAX package raises too): the
+        training-path SVGP.predict_f(full_cov=True) gives the joint
+        covariance."""
+        if full_cov:
+            raise NotImplementedError(
+                "PrecomputedPosterior serves marginal (diag) variances; "
+                "use SVGP.predict_f(full_cov=True)")
+        lead = Xnew.shape[:-2]
+        Xnew = Xnew.reshape(-1, Xnew.shape[-1])
         Kzx = self.kernel.K(self.Z, Xnew)                      # [M, N]
         Kdiag = self.kernel.K_diag(Xnew)                       # [N]
         fmean = Kzx.T @ self.alpha                             # [N, K]
@@ -67,8 +79,11 @@ class PrecomputedPosterior(nn.Module):
             quad = qsqrt_sq_colsum(self.S16, A)                # [K, N]
         else:
             quad = (self.S.transpose(-1, -2) @ A).square().sum(-2)
-        fvar = ((Kdiag - A.square().sum(0))[None, :] + quad).clamp_min(1e-12)
-        return fmean, expand_independent_outputs(fvar.T, False, full_output_cov)
+        fvar = ((Kdiag - A.square().sum(0))[None, :] + quad).clamp_min(1e-12).T
+        if lead:
+            fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
+            fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
+        return fmean, expand_independent_outputs(fvar, False, full_output_cov)
 
 
 def precompute_posterior(svgp) -> PrecomputedPosterior:

@@ -24,6 +24,15 @@ from ..utils.shapes import ShapeChecker
 __all__ = ["SVGP"]
 
 
+def _cholesky_nan(A):
+    """torch.linalg.cholesky_ex of [..., N, N] with NaN from the first
+    failed column on in each matrix (cholesky_factor_plain's masking)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    cols = torch.arange(A.shape[-1], device=A.device)
+    failed = (info[..., None] > 0) & (cols >= info[..., None] - 1)
+    return torch.where(failed[..., None, :], torch.nan, L)
+
+
 class SVGP(nn.Module):
     def __init__(self, kernel: Kernel, Z: Parameter, q_mu: Parameter,
                  q_sqrt: Parameter, *, whiten: bool = True,
@@ -101,11 +110,13 @@ class SVGP(nn.Module):
 
         ``full_cov=True`` draws from the joint posterior over Xnew: mean +
         L z with L the Cholesky factor of each latent's [N, N] covariance
-        plus jitter I (torch.linalg.cholesky raises on a matrix that is not
-        positive definite, where JAX returns NaNs).  This batched [K, N, N]
-        factor is the one Cholesky that stays torch.linalg.cholesky: the
-        JAX package's Pallas routing sends batched inputs to XLA too, and
-        its autograd carries path B's draws.  ``full_cov=False``
+        plus jitter I.  A covariance that is not positive definite gives
+        NaN from its failed column on, per latent (the draws of that latent
+        are then NaN, as JAX's are), with no exception and no read of the
+        info code back to the host.  This batched [K, N, N] factor is the
+        one Cholesky that stays a library call (torch.linalg.cholesky_ex):
+        the JAX package's Pallas routing sends batched inputs to XLA too,
+        and its autograd carries path B's draws.  ``full_cov=False``
         draws each point from its marginal.  z is drawn from ``generator``,
         [S, K, N, 1] for the joint form, [S, N, K] for the marginal one.
         """
@@ -115,7 +126,7 @@ class SVGP(nn.Module):
             z = torch.randn((num_samples, *mean.shape), generator=generator,
                             dtype=mean.dtype, device=mean.device)
             return mean + z * torch.sqrt(var.clamp_min(0.0) + jitter)
-        L = torch.linalg.cholesky(add_jitter(var, jitter))      # [K, N, N]
+        L = _cholesky_nan(add_jitter(var, jitter))               # [K, N, N]
         z = torch.randn((num_samples, *var.shape[:-1], 1), generator=generator,
                         dtype=mean.dtype, device=mean.device)    # [S, K, N, 1]
         f = L @ z[..., 0].permute(1, 2, 0)                       # [K, N, S]

@@ -9,10 +9,16 @@ diagonal variance sum_m' B^2), and _k_fwd (forward) and _k_dl / _k_da
 The kernels are csrc/tril_fwd.cu (both forwards, one kernel templated on
 the output type) and csrc/tril_bwd.cu (both backward pairs, templated on
 the source of W).  On the H100 each is tensor-core bound (K*N*M^2/2 =
-5.5e11 multiply-adds a layer at M=4096, N=8192, K=8), so each runs bf16
-wmma fragments with fp32 accumulators held over the whole contraction,
-visits only the tiles on or below the diagonal, and zeroes L's
-strictly-upper entries as it stages them.  The square-sum's backward
+5.5e11 multiply-adds a layer at M=4096, N=8192, K=8), so each holds fp32
+accumulators over the whole contraction, visits only the tiles on or below
+the diagonal, and zeroes L's strictly-upper entries before they reach the
+tensor cores.  The forward is Hopper's shape (TMA loads into a ring of
+shared-memory stages, wgmma from two warpgroups, a persistent grid); the
+backward kernels run wmma fragments.  The forward's tensor maps need
+16-byte row strides: ``_tma_operands`` pads A16 to a multiple of 8
+columns and L16 to a multiple of 8 rows and columns, with zeros, where N
+or M is not one (a shape rule of the kernel, which the main path's shapes
+already meet).  The square-sum's backward
 kernels form W = bf16(B16 * G) while staging each tile (G = 2 * the
 cotangent of the square-sum), so no W array reaches device memory;
 atl_matmul's read W16 = bf16(dB).
@@ -109,15 +115,28 @@ def _check_fwd_shapes(what, A16, L16):
     return _check_device(what, A16)
 
 
+def _tma_operands(A16, L16):
+    """(A16, L16) with row strides the forward kernel's TMA can take: A16
+    [M, N] padded with zero columns to a multiple of 8, L16 [K, M, M] with
+    zero rows and columns to a multiple of 8, each only where needed."""
+    M, N = A16.shape
+    if N % 8:
+        A16 = torch.nn.functional.pad(A16, (0, -N % 8))
+    if M % 8:
+        L16 = torch.nn.functional.pad(L16, (0, -M % 8, 0, -M % 8))
+    return A16, L16
+
+
 def _fwd(what, entry, out_dtype, A16, L16):
     """Launch one of the two forward entry points: -> [K, N, M] out_dtype."""
     check_launch_args(A16, L16, what)
     M, N = A16.shape
     K = L16.shape[0]
+    A16, L16 = _tma_operands(A16, L16)
     B = torch.empty((K, N, M), dtype=out_dtype, device=A16.device)
     code = getattr(_native.library(), entry)(
-        A16.data_ptr(), L16.data_ptr(), B.data_ptr(), M, N, K,
-        _native.stream_ptr(A16.device))
+        A16.data_ptr(), L16.data_ptr(), B.data_ptr(), M, N, K, A16.shape[1],
+        L16.shape[-1], _native.stream_ptr(A16.device))
     _native.check(code, what)
     return B
 

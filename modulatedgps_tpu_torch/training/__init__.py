@@ -1,6 +1,6 @@
 from .adam import Adam
 from .checkpoint import restore_checkpoint, save_checkpoint
-from .loop import make_train_step, run_adam, run_adam_multistart
+from .loop import TrainState, make_train_step, run_adam, run_adam_multistart
 
 __all__ = ["Adam", "make_train_step", "restore_checkpoint", "run_adam",
-           "run_adam_multistart", "save_checkpoint"]
+           "run_adam_multistart", "save_checkpoint", "TrainState"]

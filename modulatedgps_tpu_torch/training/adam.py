@@ -10,7 +10,8 @@ goes through ``adam_tril_``: kernel #14 on the card, its plain version on
 the CPU, updating p, m and v in place on and below the diagonal only.  The
 upper triangle of such a leaf keeps its bits and its m and v stay 0 there.
 Tril-ness is the Parameter's transform, not the leaf's shape.  Every other
-leaf takes the elementwise update.  Parameters whose ``requires_grad`` is
+leaf takes the elementwise update.  b1, b2 and eps are the instance's
+(optax's defaults unless given), as JAX's FusedAdam(lr, b1, b2, eps).  Parameters whose ``requires_grad`` is
 False get no update (the JAX package masks their gradients to zero, which
 leaves them unchanged too).  The bias corrections are computed on the host
 in double from the step count, so a step never waits on the card.
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from ..params import Parameter
-from .fused_adam import B1, B2, adam_tril_, adam_update
+from .fused_adam import B1, B2, EPS, adam_tril_, adam_update
 
 __all__ = ["Adam"]
 
@@ -30,14 +31,15 @@ class Adam:
     """Adam over ``model``'s trainable raw parameters; ``names`` are their
     names in ``model.named_parameters()``."""
 
-    def __init__(self, model: nn.Module, lr: float):
+    def __init__(self, model: nn.Module, lr: float, b1: float = B1,
+                 b2: float = B2, eps: float = EPS):
         tril = {id(mod.raw) for mod in model.modules()
                 if isinstance(mod, Parameter) and mod.transform == "tril"}
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.tril = [id(p) in tril for p in self.params]
-        self.lr = lr
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.count = 0
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
@@ -50,12 +52,13 @@ class Adam:
     def step(self) -> None:
         """One update of every parameter from its ``.grad``."""
         self.count += 1
-        c1 = 1.0 / (1.0 - B1 ** self.count)
-        c2 = 1.0 / (1.0 - B2 ** self.count)
+        c1 = 1.0 / (1.0 - self.b1 ** self.count)
+        c2 = 1.0 / (1.0 - self.b2 ** self.count)
+        hyper = (self.b1, self.b2, self.eps)
         for p, m, v, tril in zip(self.params, self.m, self.v, self.tril):
             if tril:
-                adam_tril_(p, p.grad, m, v, self.lr, c1, c2)
+                adam_tril_(p, p.grad, m, v, self.lr, c1, c2, *hyper)
                 continue
-            for old, new in zip((p, m, v),
-                                adam_update(p, p.grad, m, v, self.lr, c1, c2)):
+            for old, new in zip((p, m, v), adam_update(p, p.grad, m, v, self.lr,
+                                                       c1, c2, *hyper)):
                 old.copy_(new)

@@ -2,12 +2,15 @@
 CUDA kernel and its plain version.
 
 Replaces modulatedgps_tpu/training/fused_adam.py:_k_adam; the kernel is
-csrc/adam_tril.cu.  The update is optax.adam's at its defaults, the
-arithmetic modulatedgps_tpu/training/fused_adam.py:93-97 writes:
+csrc/adam_tril.cu.  The update is optax.adam's, the arithmetic
+modulatedgps_tpu/training/fused_adam.py:93-97 writes:
 
-    m' = B1 m + (1 - B1) g
-    v' = B2 v + (1 - B2) g^2
-    p' = p - lr (m' c1) / (sqrt(v' c2) + EPS),   c = 1 / (1 - B^t).
+    m' = b1 m + (1 - b1) g
+    v' = b2 v + (1 - b2) g^2
+    p' = p - lr (m' c1) / (sqrt(v' c2) + eps),   c = 1 / (1 - b^t).
+
+b1, b2 and eps are arguments (the defaults B1, B2, EPS are optax's), as
+JAX's FusedAdam(lr, b1, b2, eps) takes them.
 
 The kernel reads p, g, m, v and writes p, m, v on and below the diagonal
 only: one pass over half the bytes of the dense update, with no
@@ -32,17 +35,18 @@ __all__ = ["B1", "B2", "EPS", "adam_update", "adam_tril_", "adam_tril_plain_",
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
-def adam_update(p, g, m, v, lr, c1, c2):
+def adam_update(p, g, m, v, lr, c1, c2, b1=B1, b2=B2, eps=EPS):
     """(p', m', v') of one Adam step, in optax's order of operations."""
-    m2 = B1 * m + (1.0 - B1) * g
-    v2 = B2 * v + (1.0 - B2) * g * g
-    return p - lr * (m2 * c1) / (torch.sqrt(v2 * c2) + EPS), m2, v2
+    m2 = b1 * m + (1.0 - b1) * g
+    v2 = b2 * v + (1.0 - b2) * g * g
+    return p - lr * (m2 * c1) / (torch.sqrt(v2 * c2) + eps), m2, v2
 
 
-def adam_tril_plain_(p, g, m, v, lr, c1, c2):
+def adam_tril_plain_(p, g, m, v, lr, c1, c2, b1=B1, b2=B2, eps=EPS):
     """adam_update written into p, m and v on and below the diagonal only."""
     lower = torch.ones(p.shape[-2:], dtype=torch.bool, device=p.device).tril_()
-    for old, new in zip((p, m, v), adam_update(p, g, m, v, lr, c1, c2)):
+    for old, new in zip((p, m, v),
+                        adam_update(p, g, m, v, lr, c1, c2, b1, b2, eps)):
         old.copy_(torch.where(lower, new, old))
 
 
@@ -58,17 +62,18 @@ def check_launch_args(p, g, m, v):
 
 
 @torch.no_grad()
-def adam_tril_(p, g, m, v, lr: float, c1: float, c2: float) -> None:
+def adam_tril_(p, g, m, v, lr: float, c1: float, c2: float, b1: float = B1,
+               b2: float = B2, eps: float = EPS) -> None:
     """One Adam step of p, m, v [K, M, M] in place from the gradient g, on
     and below the diagonal; c1, c2 are the bias corrections of this step."""
     if p.device.type == "cpu":
-        adam_tril_plain_(p, g, m, v, lr, c1, c2)
+        adam_tril_plain_(p, g, m, v, lr, c1, c2, b1, b2, eps)
         return
     check_launch_args(p, g, m, v)
     K, M, _ = p.shape
     code = _native.library().mgp_adam_tril(
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), M, K,
-        B1, 1.0 - B1, B2, 1.0 - B2, lr, c1, c2, EPS,
+        b1, 1.0 - b1, b2, 1.0 - b2, lr, c1, c2, eps,
         _native.stream_ptr(p.device))
     _native.check(code, "adam_tril_")
     adam_tril_.launches += 1

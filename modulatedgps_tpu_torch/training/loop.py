@@ -4,8 +4,9 @@ Mirrors modulatedgps_tpu/training/loop.py:34-305: ``make_train_step``
 gives one step (loss, backward, Adam update); ``run_adam`` runs a number of
 them over a minibatch iterator, logging the ELBO every ``log_every`` steps
 (the loss of that step, read back from the device only then), with
-periodic checkpoints and resume; ``run_adam_multistart`` trains a few
-short replicas and continues the best.  Randomness is an explicit
+periodic checkpoints and resume, and an optional ``callback(i, elbo,
+state)`` at each log step; ``run_adam_multistart`` trains a few short
+replicas and continues the best.  Randomness is an explicit
 ``torch.Generator`` on the model's device.
 """
 from __future__ import annotations
@@ -13,14 +14,27 @@ from __future__ import annotations
 import copy
 import os
 import warnings
-from typing import Callable, Iterator
+from typing import Callable, Iterator, NamedTuple
 
 import torch
 
 from .adam import Adam
 from .checkpoint import restore_checkpoint, save_checkpoint
 
-__all__ = ["make_train_step", "run_adam", "run_adam_multistart"]
+__all__ = ["TrainState", "make_train_step", "run_adam",
+           "run_adam_multistart"]
+
+
+class TrainState(NamedTuple):
+    """What ``run_adam`` hands its callback: the port's counterpart of the
+    JAX package's TrainState (model, opt_state, step, key).  ``model`` and
+    ``optimizer`` are the live objects the run updates in place; ``step``
+    is the number of steps taken; ``generator`` is the run's
+    torch.Generator."""
+    model: torch.nn.Module
+    optimizer: Adam
+    step: int
+    generator: torch.Generator
 
 
 def make_train_step(optimizer: Adam, loss_fn: Callable | None = None):
@@ -50,8 +64,10 @@ def _device(model) -> torch.device:
 
 
 def _train(step, model, generator, train_iter, first, last, log_every, verbose,
-           on_step=None):
-    """Steps first..last; returns (iters, elbos, the last step taken)."""
+           on_step=None, on_log=None):
+    """Steps first..last; returns (iters, elbos, the last step taken).
+    ``on_log(i, elbo)`` runs at each log step, ``on_step(i)`` after every
+    step."""
     iters, elbos = [], []
     if verbose:
         print(f"{'iter':>5s}{'ELBO:':>24s}")
@@ -67,6 +83,8 @@ def _train(step, model, generator, train_iter, first, last, log_every, verbose,
                     print(f"{i:>5d}{elbo:>24.6f}")
                 iters.append(i)
                 elbos.append(elbo)
+                if on_log is not None:
+                    on_log(i, elbo)
             if on_step is not None:
                 on_step(i)
     except KeyboardInterrupt:
@@ -78,14 +96,17 @@ def run_adam(model, num_iter: int, train_iter: Iterator, lr: float, *,
              generator: torch.Generator | None = None, log_every: int = 5,
              verbose: bool = True, checkpoint_path: str | None = None,
              checkpoint_every: int = 0, resume: bool = False,
-             optimizer: Adam | None = None):
+             optimizer: Adam | None = None, callback: Callable | None = None):
     """Train with Adam; returns (model, iters, elbos).
 
     ``train_iter`` yields (X, Y) minibatches on the model's device; the
     generator defaults to one seeded with 0 on that device; ``optimizer``
     defaults to ``Adam(model, lr)``.  Prints an iter/ELBO table every
     ``log_every`` steps and stops on KeyboardInterrupt, returning the
-    history so far.
+    history so far.  ``callback(i, elbo, state)``, where given, runs at
+    every log step right after the ELBO is recorded, with ``state`` a
+    TrainState(model, optimizer, i, generator), as the JAX package's
+    run_adam calls it.
 
     With ``checkpoint_path`` and ``checkpoint_every=N`` the model, Adam's
     state, the step and the generator are saved every N steps and once at
@@ -114,9 +135,12 @@ def run_adam(model, num_iter: int, train_iter: Iterator, lr: float, *,
         if saving and i % checkpoint_every == 0:
             save_checkpoint(checkpoint_path, model, optimizer, i, generator)
 
+    def on_log(i, elbo):
+        callback(i, elbo, TrainState(model, optimizer, i, generator))
+
     iters, elbos, done = _train(make_train_step(optimizer), model, generator,
                                 train_iter, start + 1, num_iter, log_every,
-                                verbose, save)
+                                verbose, save, on_log if callback else None)
     if saving and done > start and done % checkpoint_every:
         # The file always holds the state returned, whatever num_iter is.
         save_checkpoint(checkpoint_path, model, optimizer, done, generator)

@@ -194,14 +194,22 @@ def test_launcher_reaches_the_kernel_entry_or_raises():
             return 0
 
     real_empty = torch.empty
-    cpu_empty = lambda *a, device=None, **kw: real_empty(*a, **kw)  # noqa: E731
+    made = []
+
+    def cpu_empty(*a, device=None, **kw):
+        made.append(real_empty(*a, **kw))
+        return made[-1]
+
     before = chol_kernel.cholesky_factor.launches
     with mock.patch.object(_native, "library", Lib), \
             mock.patch.object(_native, "stream_ptr", lambda device: 77), \
             mock.patch.object(chol_kernel.torch, "empty", cpu_empty):
         L, Inv = chol_kernel.cholesky_factor(_OnTheCard(torch.eye(70)))
         assert L.shape == (70, 70) and Inv.shape == (2, 64, 64)
-        assert calls == [(4096, L.data_ptr(), Inv.data_ptr(), 70, 77)]
+        work = made[-1]          # the task and tile counters: 1 + 2 x 2
+        assert work.shape == (5,) and work.dtype == torch.int32
+        assert calls == [(4096, L.data_ptr(), Inv.data_ptr(), work.data_ptr(),
+                          None, 70, 77)]
         assert chol_kernel.cholesky_factor.launches == before + 1
         with pytest.raises(TypeError):
             chol_kernel.cholesky_factor(_OnTheCard(torch.eye(70).double()))

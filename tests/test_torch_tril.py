@@ -143,3 +143,64 @@ def test_tril_fwd_rejects_bad_shapes():
     with pytest.raises(ValueError):
         tril_sq_fwd(torch.zeros(4, 3, dtype=torch.bfloat16),
                     torch.zeros(2, 5, 5, dtype=torch.bfloat16))
+
+
+class _OnTheCard:
+    """Stands in for a CUDA tensor for the launcher's checks and padding:
+    its device reads as the card, its data is a CPU tensor's."""
+
+    def __init__(self, t):
+        self.t = t
+        self.device = torch.device("cuda", 0)
+        self.dtype, self.shape, self.ndim = t.dtype, t.shape, t.ndim
+        self.requires_grad = False
+
+    def is_contiguous(self):
+        return self.t.is_contiguous()
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
+@pytest.mark.parametrize("M, N", [(136, 264), (200, 77), (197, 333), (1, 5)])
+def test_tril_fwd_launcher_pads_to_tma_strides(M, N):
+    """The forward kernel's alignment rule: the entry point gets A16 with
+    lda = N rounded up to a multiple of 8 and L16 with ldl = M rounded up,
+    zero-padded where they differ (the operands themselves where not), and
+    the padding leaves the product on the [N, M] corner unchanged."""
+    from modulatedgps_tpu_torch import _native
+    from modulatedgps_tpu_torch.ops import tril_kernel
+    rng = np.random.default_rng(M)
+    A16 = torch.as_tensor(rng.normal(size=(M, N))).to(torch.bfloat16)
+    L16 = torch.as_tensor(rng.normal(size=(2, M, M))).to(torch.bfloat16)
+    Ap, Lp = tril_kernel._tma_operands(A16, L16)
+    lda, ldl = -(-N // 8) * 8, -(-M // 8) * 8
+    assert Ap.shape == (M, lda) and Lp.shape == (2, ldl, ldl)
+    assert (Ap is A16) == (lda == N) and (Lp is L16) == (ldl == M)
+    assert not Ap[:, N:].any() and not Lp[:, M:].any() and not Lp[:, :, M:].any()
+    # TMA reads A's rows past M as zeros: the same product with them added
+    Ap_rows = torch.nn.functional.pad(Ap, (0, 0, 0, ldl - M))
+    got = tril_sq_fwd_plain(Ap_rows, Lp)[:, :N, :M]
+    assert torch.equal(got, tril_sq_fwd_plain(A16, L16))
+
+    calls = []
+
+    class Lib:
+        def mgp_tril_fwd(self, *args):
+            calls.append(args)
+            return 0
+
+    real_empty, real_pad = torch.empty, torch.nn.functional.pad
+    cpu_empty = lambda *a, device=None, **kw: real_empty(*a, **kw)  # noqa: E731
+    card_pad = lambda t, *a, **kw: _OnTheCard(real_pad(t.t, *a, **kw))  # noqa: E731
+    before = tril_sq_fwd.launches
+    with mock.patch.object(_native, "library", Lib), \
+            mock.patch.object(_native, "stream_ptr", lambda device: 77), \
+            mock.patch.object(tril_kernel.torch, "empty", cpu_empty), \
+            mock.patch.object(tril_kernel.torch.nn.functional, "pad", card_pad):
+        B = tril_sq_fwd(_OnTheCard(A16), _OnTheCard(L16))
+    assert B.shape == (2, N, M) and B.dtype == torch.bfloat16
+    (args,) = calls
+    assert args[3:] == (M, N, 2, lda, ldl, 77) and args[2] == B.data_ptr()
+    assert tril_sq_fwd.launches == before + 1
+    tril_sq_fwd.launches = before
