@@ -7,8 +7,9 @@ once on one NVIDIA card.
     python3 chip_smoke.py --against DIR   # only the build and the A/B below
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
-builds both, times the Cholesky and the tril forward of the two in turns
-on the same inputs and compares their outputs, and prints no last line.
+builds both, times the Cholesky and the tril forward and backward kernels
+of the two in turns on the same inputs and compares their outputs, and
+prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -17,6 +18,10 @@ Phases, each printing its own lines:
      small ragged shapes and at its main-path shape, with CUDA-event
      medians of the kernel, the plain version and, where one exists, one
      PyTorch call computing the same function, beside the kernel's bound;
+     the tril backward kernels (#6-#9) under each arrangement of their
+     output tile and W (tril_kernel.BWD_TILE), checked at aligned, padded
+     and M=1 shapes with NaN above L's diagonal and timed in turns at the
+     main shape;
      the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
@@ -156,6 +161,10 @@ NUM_SAMPLES, NUM_DATA, LR, TRAIN_STEPS = 16, 1_000_000, 5e-3, 6
 # (variance, lengthscale) of the north-star layers (bench.py:94-99).
 PRED_SE, ASSIGN_SE = (0.5, 0.5), (0.1, 1.0)
 LIK_VARIANCE = 0.5
+# The backward tril kernels' arrangements (tril_kernel.BWD_TILE).
+BWD_TILES = {0: "256 x 128, W from shared memory",
+             1: "128 x 256, W from shared memory",
+             2: "256 x 128, W from registers"}
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -285,7 +294,8 @@ def phase_device_and_build(native):
     native.library()
     log(f"build: {seconds:.1f} s -> {path.name}")
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                   "Performance Loss")):
             log(f"  ptxas: {line.strip()}")
 
 
@@ -424,11 +434,16 @@ def phase_kernels():
     # (tests/test_pallas_tril.py) holds a bf16 kernel against an f32
     # product; the plain versions here round W = bf16(B16 G) the same way
     # and accumulate in fp32 too (both sat within 4e-5 of the maximum on an
-    # H100), so 3e-2 would pass a dropped tile of the m'-run.
+    # H100), so 3e-2 would pass a dropped tile of the m'-run.  L carries NaN
+    # above its diagonal; each output tile arrangement is checked.  The
+    # kernels' TMA needs 8-aligned rows: N=77 takes the padded A16 and G,
+    # M=197 the padded L16 and B16 too, M=136, N=264 and the main shape
+    # neither.
     def tril_bwd_case(label, M, N, K, record):
         A = rand(M, N, scale=1 / math.sqrt(M))
         L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M))  # upper garbage
-        A16, L16 = A.to(torch.bfloat16), L.to(torch.bfloat16)
+        A16 = A.to(torch.bfloat16)
+        L16 = (L + nan_above(K, M, dev)).to(torch.bfloat16)
         B16 = tril_kernel.tril_sq_fwd_plain(A16, L16)
         G = 2.0 * rand(K, N)
         out = {}
@@ -437,18 +452,12 @@ def phase_kernels():
                  tril_kernel.tril_sq_dl_plain, A16),
                 ("tril_sq_da", tril_kernel.tril_sq_da,
                  tril_kernel.tril_sq_da_plain, L16)):
-            got = fn(x16, B16, G)
-            torch.cuda.synchronize()
             want = plain(x16, B16, G)
-            scale = float(want.abs().max())
-            err, bad = allclose_report(got, want, 1e-3, 1e-3 * scale)
-            upper = upper_nonzero(got) if name == "tril_sq_dl" else 0
-            check(bad == 0 and upper == 0,
-                  f"{name} {label} M={M} N={N} K={K}: max_abs_err {err:.3e} "
-                  f"of max {scale:.3e} ({bad} outside rtol 1e-3, atol 1e-3 "
-                  f"max)" + (f", {upper} non-zero above the diagonal"
-                             if name == "tril_sq_dl" else ""))
-            out[name] = err
+            for tile in bwd_tiles(name):
+                got = fn(x16, B16, G)
+                torch.cuda.synchronize()
+                out.setdefault(name, bwd_check(name, f"{label} tile {tile}",
+                                               M, N, K, got, want))
         if not record:
             return None
         W16 = (B16.float() * G[:, :, None]).to(torch.bfloat16)
@@ -469,14 +478,17 @@ def phase_kernels():
             log(f"  {name} M={M} N={N} K={K}: kernel {ms:.4f} ms "
                 f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+            bwd_tile_times(name, lambda: fn(x16, B16, G), macs)
             res[name] = {"max_abs_err": out[name], "ms": ms,
                          "plain_ms": plain_ms,
                          **bound(nbytes, 2 * macs, "bf16"),
                          "library_ms": lib_ms}
         return res
 
-    tril_bwd_case("ragged", 200, 77, 3, False)
-    tril_bwd_case("ragged", 197, 333, 2, False)
+    tril_bwd_case("ragged, padded A", 200, 77, 3, False)
+    tril_bwd_case("ragged, aligned", 136, 264, 2, False)
+    tril_bwd_case("ragged, padded A and L", 197, 333, 2, False)
+    tril_bwd_case("M=1", 1, 5, 2, False)
     rows.update(tril_bwd_case("main", M_FULL, BATCH, K_EXPERTS, True))
 
     # --- tri_tt_matmul / tri_nt_matmul: 2e-3 of the largest magnitude, the
@@ -665,7 +677,8 @@ def trsm_t_tril_w_rows(rand, spd_chol):
     rows["trsm_lower_t"] = trsm_t_case("main", M_FULL, BATCH, True)
 
     # --- tril_dl / tril_da: 1e-3 of the largest magnitude (rtol and atol),
-    # as #8/#9's rows; dL exactly 0 above the diagonal.
+    # as #8/#9's rows; dL exactly 0 above the diagonal; each output tile
+    # arrangement checked.
     def tril_w_case(label, M, N, K, record):
         A16 = rand(M, N, scale=1 / math.sqrt(M)).to(torch.bfloat16)
         L = torch.eye(M, device=dev) + 0.05 * rand(K, M, M)
@@ -675,18 +688,12 @@ def trsm_t_tril_w_rows(rand, spd_chol):
         for name, fn, plain, x16 in (
                 ("tril_dl", tril_kernel.tril_dl, tril_kernel.tril_dl_plain, A16),
                 ("tril_da", tril_kernel.tril_da, tril_kernel.tril_da_plain, L16)):
-            got = fn(x16, W16)
-            torch.cuda.synchronize()
             want = plain(x16, W16)
-            scale = float(want.abs().max())
-            err, bad = allclose_report(got, want, 1e-3, 1e-3 * scale)
-            upper = upper_nonzero(got) if name == "tril_dl" else 0
-            check(bad == 0 and upper == 0,
-                  f"{name} {label} M={M} N={N} K={K}: max_abs_err {err:.3e} "
-                  f"of max {scale:.3e} ({bad} outside rtol 1e-3, atol 1e-3 "
-                  f"max)" + (f", {upper} non-zero above the diagonal"
-                             if name == "tril_dl" else ""))
-            errs[name] = err
+            for tile in bwd_tiles(name):
+                got = fn(x16, W16)
+                torch.cuda.synchronize()
+                errs.setdefault(name, bwd_check(name, f"{label} tile {tile}",
+                                                M, N, K, got, want))
         if not record:
             return None
         Lcat16 = torch.tril(L.to(torch.bfloat16)).permute(1, 0, 2).reshape(
@@ -706,17 +713,72 @@ def trsm_t_tril_w_rows(rand, spd_chol):
             log(f"  {name} M={M} N={N} K={K}: kernel {ms:.4f} ms "
                 f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+            bwd_tile_times(name, lambda: fn(x16, W16), macs)
             res[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain_ms,
                          **bound(nbytes, 2 * macs, "bf16"),
                          "library_ms": lib_ms}
         return res
 
-    tril_w_case("ragged", 200, 77, 3, False)
-    tril_w_case("ragged", 197, 333, 2, False)
-    tril_w_case("ragged", 1, 5, 2, False)
+    tril_w_case("ragged, padded A", 200, 77, 3, False)
+    tril_w_case("ragged, aligned", 136, 264, 2, False)
+    tril_w_case("ragged, padded A and L", 197, 333, 2, False)
+    tril_w_case("M=1", 1, 5, 2, False)
     rows.update(tril_w_case("main", M_FULL, N_GRID, K_EXPERTS, True))
     return rows
+
+
+def bwd_tiles(name):
+    """Set each arrangement of the backward kernel ``name``
+    (tril_kernel.BWD_TILE) in turn, the default first, and restore it."""
+    from modulatedgps_tpu_torch.ops import tril_kernel
+    default = tril_kernel.BWD_TILE[name]
+    try:
+        for tile in [default] + [t for t in BWD_TILES if t != default]:
+            tril_kernel.BWD_TILE[name] = tile
+            yield tile
+    finally:
+        tril_kernel.BWD_TILE[name] = default
+
+
+def bwd_check(name, label, M, N, K, got, want):
+    """A backward kernel's output within 1e-3 of the plain version's
+    maximum (rtol and atol), dL exactly 0 above the diagonal; returns the
+    max abs error."""
+    scale = float(want.abs().max())
+    err, bad = allclose_report(got, want, 1e-3, 1e-3 * scale)
+    upper = upper_nonzero(got) if name.endswith("dl") else 0
+    check(bad == 0 and upper == 0,
+          f"{name} {label} M={M} N={N} K={K}: max_abs_err {err:.3e} of max "
+          f"{scale:.3e} ({bad} outside rtol 1e-3, atol 1e-3 max)"
+          + (f", {upper} non-zero above the diagonal"
+             if name.endswith("dl") else "") + ", NaN above L's diagonal")
+    return err
+
+
+def bwd_tile_times(name, call, macs):
+    """CUDA-event medians of ``call`` under each arrangement of the backward
+    kernel ``name``, in turns (the default first and last)."""
+    from modulatedgps_tpu_torch.ops import tril_kernel
+    default = tril_kernel.BWD_TILE[name]
+    order = [default] + [t for t in BWD_TILES if t != default]
+
+    def under(tile):
+        def run():
+            tril_kernel.BWD_TILE[name] = tile
+            call()
+        return run
+
+    try:
+        t = cuda_ms([under(x) for x in order + order[::-1]], 5)
+    finally:
+        tril_kernel.BWD_TILE[name] = default
+    n = len(order)
+    log(f"  {name} by arrangement (ms, in turns): " + ", ".join(
+        f"{tile}{' (default)' if tile == default else ''} {t[i]:.4f} / "
+        f"{t[2 * n - 1 - i]:.4f}" for i, tile in enumerate(order))
+        + f"; {2 * macs / min(t) / 1e9:.1f} TFLOP/s useful at the fastest; "
+        + "; ".join(f"{k}: {v}" for k, v in BWD_TILES.items()))
 
 
 def chol_quad_rows(rand, dev="cuda"):
@@ -1261,10 +1323,10 @@ def upper_nonzero(t):
 FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)"),
             ("adam_tril_kernel", "Adam tril (#14)"),
             ("tril_fwd_kernel", "tril forward (#3)"),
-            ("tril_dl_kernel<true>", "tril dL (#8)"),
-            ("tril_da_kernel<true>", "tril dA (#9)"),
-            ("tril_dl_kernel<false>", "tril dL (#6)"),
-            ("tril_da_kernel<false>", "tril dA (#7)"),
+            ("tril_dl_kernel<true", "tril dL (#8)"),
+            ("tril_da_kernel<true", "tril dA (#9)"),
+            ("tril_dl_kernel<false", "tril dL (#6)"),
+            ("tril_da_kernel<false", "tril dA (#7)"),
             ("tri_tt_kernel", "pullback tt (#10)"),
             ("tri_nt_kernel", "pullback nt (#11)"),
             ("kxz_kernel", "kxz (#1)"),
@@ -1986,12 +2048,13 @@ def phase_joint_grad_reference(pt, dev="cuda", M=M_REF, N=N_GRID_REF,
 
 
 def phase_against(parent: str) -> None:
-    """The Cholesky (#15/#16) and the tril forward (#3/#5) of this checkout
-    against those of another one (``parent``, e.g. a checkout of the parent
-    commit), both packages loaded in this process: CUDA-event medians at
-    the main shapes, timed in turns (parent, this, this, parent) over the
-    same inputs, the factors compared bit for bit and the tril outputs
-    against each other."""
+    """The Cholesky (#15/#16), the tril forward (#3/#5) and the tril
+    backward (#6-#9) of this checkout against those of another one
+    (``parent``, e.g. a checkout of the parent commit), both packages
+    loaded in this process: CUDA-event medians at the main shapes, timed
+    in turns (parent, this, this, parent) over the same inputs, the factors
+    and the forwards' outputs compared bit for bit and the backwards'
+    within 1e-3 of the parent's maximum."""
     import importlib
     import importlib.util
     from modulatedgps_tpu_torch.ops import chol_kernel, tril_kernel
@@ -2025,23 +2088,46 @@ def phase_against(parent: str) -> None:
                   f"the parent's (max |dL| {float((L - Lp).abs().max()):.3e})")
         turns(f"cholesky_factor M={M} pred Kmm", lambda: pchol.cholesky_factor(K),
               lambda: chol_kernel.cholesky_factor(K), 10)
+    M = M_FULL
     for what, N, this_fn, parent_fn in (
             ("tril_sq_fwd", BATCH, tril_kernel.tril_sq_fwd, ptril.tril_sq_fwd),
             ("tril_fwd_f32", N_GRID, tril_kernel.tril_fwd_f32,
              ptril.tril_fwd_f32)):
-        M = M_FULL
         A16 = (torch.randn(M, N, generator=g) / math.sqrt(M)).to(dev, torch.bfloat16)
         L16 = (torch.eye(M) + 0.05 * torch.randn(K_EXPERTS, M, M, generator=g)
                ).to(dev, torch.bfloat16)
         got, want = this_fn(A16, L16), parent_fn(A16, L16)
         torch.cuda.synchronize()
         diff = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        check(diff <= 1e-2 * scale, f"{what} M={M} N={N} K={K_EXPERTS}: "
-              f"max |this - parent| {diff:.3e} of max {scale:.3e}")
+        check(torch.equal(got, want), f"{what} M={M} N={N} K={K_EXPERTS}: "
+              f"bit-equal to the parent's (max |this - parent| {diff:.3e})")
         turns(f"{what} M={M} N={N} K={K_EXPERTS}",
               lambda: parent_fn(A16, L16), lambda: this_fn(A16, L16), 5)
         del A16, L16, got, want
+    # The backward kernels (#8/#9 at the batch, #6/#7 at the sampling grid):
+    # within 1e-3 of the parent's maximum (the summation order changed).
+    for N, names in ((BATCH, ("tril_sq_dl", "tril_sq_da")),
+                     (N_GRID, ("tril_dl", "tril_da"))):
+        A16 = (torch.randn(M, N, generator=g) / math.sqrt(M)).to(dev, torch.bfloat16)
+        L16 = (torch.eye(M) + 0.05 * torch.randn(K_EXPERTS, M, M, generator=g)
+               ).to(dev, torch.bfloat16)
+        B16 = tril_kernel.tril_sq_fwd(A16, L16)
+        G = (2.0 * torch.randn(K_EXPERTS, N, generator=g)).to(dev)
+        W16 = torch.randn(K_EXPERTS, N, M, generator=g).to(dev, torch.bfloat16)
+        for what in names:
+            x16 = A16 if what.endswith("dl") else L16
+            args = (x16, B16, G) if what.startswith("tril_sq") else (x16, W16)
+            this_fn, parent_fn = getattr(tril_kernel, what), getattr(ptril, what)
+            got, want = this_fn(*args), parent_fn(*args)
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(diff <= 1e-3 * scale, f"{what} M={M} N={N} K={K_EXPERTS}: "
+                  f"max |this - parent| {diff:.3e} of max {scale:.3e} (1e-3)")
+            turns(f"{what} M={M} N={N} K={K_EXPERTS}",
+                  lambda: parent_fn(*args), lambda: this_fn(*args), 5)
+            del got, want
+        del A16, L16, B16, G, W16
 
 
 def main() -> int:

@@ -6,7 +6,7 @@
 // with W read in one of two ways (the kernels are templated on it):
 //
 //   scaled: the square-sum extra[k, n] = sum_m' B16[k, n, m']^2 with
-//     B16 = bf16(B), whose cotangent scaling is fused into the staging,
+//     B16 = bf16(B), whose cotangent scaling is fused into the kernels,
 //     W_k[n, m'] = bf16( f32(B16[k, n, m']) * G[k, n] ),  G = 2 * dextra;
 //     replaces modulatedgps_tpu/ops/pallas_tril.py:_k_dl_g (_dl_pallas_g)
 //     and _k_da_g (_da_pallas_g);
@@ -15,277 +15,727 @@
 //     (_dl_pallas) and _k_da (_da_pallas), atl_matmul's backward.
 //
 // Bound on the H100: tensor-core math.  At M=4096, N=8192, K=8 each kernel
-// does the lower triangle's K*N*M^2/2 = 5.5e11 multiply-adds against ~1 GB
-// of compulsory traffic, so both run bf16 wmma fragments with fp32
-// accumulators held over the whole contraction (the TPU's precision class:
-// bf16 operands, f32 accumulation; never bf16 accumulation or TF32).  W is
-// formed in the rounding order of the TPU kernels (f32 product, one bf16
-// rounding) while each B16 tile is staged into shared memory, so no W array
-// ever reaches device memory (the direct form stages W16 as read).  Loads
-// of the next step's tiles are started into registers before the current
-// step's MMAs; the scaling and masking happen when the registers are stored
-// to shared memory, so they never wait on a load in flight.
+// does the lower triangle's K*N*M^2/2 = 5.5e11 multiply-adds (1.1 ms at the
+// 989 TFLOP/s bf16 peak) against ~1 GB of compulsory traffic, so both run
+// on bf16 wgmma with fp32 accumulators held over the whole contraction (the
+// TPU's precision class: bf16 operands, f32 accumulation; never bf16
+// accumulation or TF32).
 //
-// tril_dl: one block per (m-tile, m'-tile, k), contracting over all N.  A
-//   block above the diagonal (m-tile < m'-tile) writes its tile as zeros and
-//   leaves; a diagonal block writes zeros above the diagonal, so dL comes
-//   out exactly lower-triangular and no `tril` pass is needed afterwards.
-// tril_da: one block per (m-tile, n-tile), walking k and, for each k, the
-//   m'-tiles up to its diagonal; L's strictly-upper entries are zeroed as
-//   they are staged, so only its lower triangle is read into the sum.
-//   Blocks with the longest runs (bottom m-tiles) are scheduled first.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include "tiles.cuh"
-
-using namespace nvcuda;
-using mgp::Pack8;
-using mgp::load_row8;
+// Design (Hopper; the plumbing is hopper.cuh's, shared with tril_fwd.cu):
+// a persistent grid of one CTA per SM; per CTA one thread of a producer
+// warpgroup issues TMA loads (128-byte swizzle) into a ring of four 48 KB
+// stages with full / empty mbarriers, and two consumer warpgroups run
+// wgmma over each stage.  The producer's warpgroup hands registers to the
+// consumers (setmaxnreg 40 / 232): at 168 a thread ptxas serialized every
+// wgmma.  The entry point's `tile` picks one of three arrangements:
+//
+//   0: 256 x 128 output tiles, each warpgroup two m64n128 slabs, W read by
+//      wgmma from shared memory;
+//   1: 128 x 256 tiles, one m64n256 slab, W from shared memory;
+//   2 (the wrappers' choice, fastest for all four on an H100): 256 x 128
+//      tiles computed transposed, W as wgmma's A operand in registers:
+//      each warpgroup loads its 64 W rows of a stage with ldmatrix
+//      (transposed for dL), scales them there and runs m64n256 over the
+//      256-row L / A box as B.  W then costs shared memory one TMA write
+//      and one read, where the in-place scaling of 0 and 1 adds a read
+//      and a write (the scaled forms ran ~1.2-1.5x the direct ones there).
+//      The fragments are loaded only after the previous group's wait:
+//      loading them while it ran gave wrong sums, the registers it still
+//      read being reused.
+//
+// W is formed on chip: the producer also loads the stage's slice of G
+// (f32, no swizzle); each W value becomes bf16(f32(b) * G[k, n]) (the TPU
+// kernels' rounding order: an f32 product, one bf16 rounding) in registers
+// (2) or in shared memory (0, 1: each 128-byte row n of the box, the
+// swizzle only permuting 16-byte granules within a row, then a proxy fence
+// and a barrier of the two warpgroups).  No W array reaches device memory
+// (the direct form reads W16 as given).
+//
+// tril_da: output [M, N], contraction over (k, m').  L_k [M, M] and W_k
+//   [N, M] are both m'-contiguous: K-major operands as they lie in memory
+//   (the transpose bits clear).  The run of the tile at m-tile m0 is, for
+//   each k, the 64-wide m'-stages up to its diagonal, K (m0 + BM) / 64 in
+//   all; the stages that straddle the diagonal get L's entries with m < m'
+//   overwritten with 0 in shared memory (a store, never a multiply: NaN * 0
+//   is NaN) before a barrier of the two warpgroups.  Tiles are walked
+//   longest run first, in a snake over the CTAs (CTA b takes tile b of the
+//   first wave, G-1-b of the second, ...).
+// tril_dl: output [K, M, M], contraction over all n.  A16 [M, N] is
+//   n-contiguous (K-major), W_k [N, M] m'-contiguous (MN-major, as #3's L).
+//   Every tile on or below the diagonal runs the same N / 64 stages; the
+//   tiles above it are written as exact zeros after them, and the diagonal
+//   tiles write 0 where m < m' in the epilogue, so dL comes out exactly
+//   lower-triangular with no `tril` pass afterwards.
+//
+// Alignment rule: TMA needs 16-byte row strides, so the wrapper hands in
+// A16 and G with ldn = N rounded up to a multiple of 8, and L16 and B16 /
+// W16 with ldm = M rounded up to a multiple of 8, padded with zeros where
+// N or M is not such a multiple.  Reads past the arrays are zero-filled by
+// TMA; the kernels store m < M, m' < M, n < N only.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BT = 128;        // output tile edge
-constexpr int BK = 32;         // contraction depth per step
-constexpr int NTHR = 256;      // 8 warps: 2 along the rows x 4 along the columns
-constexpr int WR = 64;         // warp tile rows
-constexpr int WC = 32;         // warp tile columns
-constexpr int FR = WR / 16;
-constexpr int FC = WC / 16;
-constexpr int LDT = BK + 8;    // pitch of a [BT][BK] tile (32-byte aligned rows)
-constexpr int LDW = BT + 8;    // pitch of a [BK][BT] tile
-constexpr int CH = BT * BK / 8 / NTHR;   // 16-byte chunks per thread per tile (2)
+using namespace mgp;
 
-static_assert(BT / WR * (BT / WC) == NTHR / 32, "warp grid covers the tile");
+constexpr int STAGES = 4;
+constexpr int NCONS = 256;                 // two consumer warpgroups
+constexpr int NTHR = NCONS + 128;          // and the producer's warpgroup
+constexpr int STAGE_BYTES = 48 * 1024;     // the L / A box, then W's
+constexpr int GSLOT = 1024;                // a stage's G slice (<= 256 f32)
+constexpr size_t SMEM_BYTES = STAGES * (STAGE_BYTES + GSLOT) + 1024 + 2 * STAGES * 8;
 
-// bf16(f32(b) * g) for eight bf16 values: the TPU kernels' rounding order.
-__device__ __forceinline__ uint4 scale8(uint4 raw, float g) {
-  Pack8 p;
-  p.u = raw;
+// The output tile: BM rows (m) by BW columns (n for dA, m' for dL); warpgroup
+// w owns the SL slabs of 64 rows from 64 SL w, each a wgmma of width BW.
+template <int SL>
+struct Tile {
+  static constexpr int BM = 128 * SL;
+  static constexpr int BW = 256 / SL;
+  static constexpr int XBYTES = BM * 128;   // the L (dA) or A (dL) box: BM rows of 64
+  static constexpr int NACC = BW / 2;       // fp32 accumulators of a slab a thread
+  static_assert(XBYTES + BW * 128 == STAGE_BYTES, "a stage holds both operands");
+};
+
+// W = bf16(f32(B16) * g) in place over ROWS 128-byte rows of W boxes, row r
+// scaled by gs[r % GB] (its n).
+template <int ROWS, int GB>
+__device__ __forceinline__ void scale_rows(uint8_t* w, const float* gs, int tid) {
+  static_assert(ROWS * 8 % NCONS == 0, "granules split evenly");
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
-    p.s[q] = __bfloat16_as_ushort(__float2bfloat16_rn(
-        __bfloat162float(__ushort_as_bfloat16(p.s[q])) * g));
-  return p.u;
-}
-
-// The staged W: B16 scaled by g (kScaled), or W16 as read.
-template <bool kScaled>
-__device__ __forceinline__ uint4 w8(uint4 raw, float g) {
-  if constexpr (kScaled) return scale8(raw, g);
-  return raw;
-}
-
-template <bool kScaled>
-__global__ void __launch_bounds__(NTHR)
-tril_dl_kernel(const __nv_bfloat16* __restrict__ A,
-               const __nv_bfloat16* __restrict__ B,
-               const float* __restrict__ G, float* __restrict__ dL, int M, int N) {
-  __shared__ __align__(32) __nv_bfloat16 As[BT * LDT];   // [m][n]
-  __shared__ __align__(32) __nv_bfloat16 Ws[BK * LDW];   // [n][m']
-  __shared__ __align__(32) float stage[NTHR / 32][16 * 16];
-
-  const int p0 = blockIdx.x * BT;
-  const int m0 = blockIdx.y * BT;
-  const int k = blockIdx.z;
-  float* out = dL + (size_t)k * M * M;
-  if (m0 < p0) {
-    mgp::zero_tile(out, M, M, M, m0, p0, BT);
-    return;
+  for (int c = 0; c < ROWS * 8 / NCONS; ++c) {
+    const int e = tid + c * NCONS;          // granule e % 8 of row e / 8
+    uint4* ptr = reinterpret_cast<uint4*>(w + e * 16);
+    const float g = gs[(e / 8) % GB];
+    uint4 v = *ptr;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      h[q] = __floats2bfloat162_rn(f.x * g, f.y * g);
+    }
+    *ptr = v;
   }
-  const __nv_bfloat16* Bk = B + (size_t)k * N * M;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wr = warp / (BT / WC);
-  const int wc = warp % (BT / WC);
-  const bool a_vec = (N % 8) == 0;
-  const bool b_vec = (M % 8) == 0;
+}
 
-  mgp::Acc acc[FR][FC];
-#pragma unroll
-  for (int i = 0; i < FR; ++i)
-#pragma unroll
-    for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// The register split: the producer's warpgroup (one thread of it issues
+// the TMA loads) gives registers back, the two consumer warpgroups take
+// them (128 accumulators a thread, plus a stage's fragments and addresses);
+// (232 - 168) x 256 = (168 - 40) x 128, 168 being the most a thread of the
+// 384 can have at launch.
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+}
 
-  uint4 ra[CH], rw[CH];
-  float rg[CH] = {};
-  auto fetch = [&](int n0) {
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * NTHR;
-      ra[c] = load_row8(A, m0 + e / (BK / 8), M, n0 + (e % (BK / 8)) * 8, N, a_vec);
-      const int n = n0 + e / (BT / 8);
-      rw[c] = load_row8(Bk, n, N, p0 + (e % (BT / 8)) * 8, M, b_vec);
-      if constexpr (kScaled) rg[c] = n < N ? G[(size_t)k * N + n] : 0.f;
-    }
-  };
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(NCONS) : "memory");
+}
 
-  fetch(0);
-  for (int n0 = 0; n0 < N; n0 += BK) {
+__device__ __forceinline__ void store2(float* dst, float a, float b, bool both, bool vec) {
+  if (both && vec) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    dst[0] = a;
+    if (both) dst[1] = b;
+  }
+}
+
+// Writes the warpgroup's slabs of a BM x BW tile at (r0, c0) of out [rows,
+// cols] (row pitch cols): acc[i][4 c + 2 h + e] is row 64 (SL wg + i) + 16
+// wq + lane / 4 + 8 h, column 8 c + 2 (lane % 4) + e.  lower: 0 where row <
+// column.
+template <int SL>
+__device__ __forceinline__ void store_tile(float (&acc)[SL][Tile<SL>::NACC], float* out,
+                                           int rows, int cols, int r0, int c0, bool lower,
+                                           int wg, int lt) {
+  const int lane = lt % 32, wq = lt / 32;
+  const bool vec = (cols % 2) == 0;
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * NTHR;
-      *reinterpret_cast<uint4*>(&As[(e / (BK / 8)) * LDT + (e % (BK / 8)) * 8]) = ra[c];
-      *reinterpret_cast<uint4*>(&Ws[(e / (BT / 8)) * LDW + (e % (BT / 8)) * 8]) =
-          w8<kScaled>(rw[c], rg[c]);
-    }
-    __syncthreads();
-    if (n0 + BK < N) fetch(n0 + BK);
+  for (int i = 0; i < SL; ++i) {
+    const int rb = r0 + 64 * (SL * wg + i) + 16 * wq + lane / 4;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FC];
+    for (int c = 0; c < Tile<SL>::BW / 8; ++c) {
+      const int col = c0 + 8 * c + 2 * (lane % 4);
 #pragma unroll
-      for (int j = 0; j < FC; ++j)
-        wmma::load_matrix_sync(fb[j], &Ws[kk * LDW + wc * WC + j * 16], LDW);
-#pragma unroll
-      for (int i = 0; i < FR; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, &As[(wr * WR + i * 16) * LDT + kk], LDT);
-#pragma unroll
-        for (int j = 0; j < FC; ++j) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = rb + 8 * h;
+        if (row < rows && col < cols) {
+          float a = acc[i][4 * c + 2 * h], b = acc[i][4 * c + 2 * h + 1];
+          if (lower && row < col) a = 0.f;
+          if (lower && row < col + 1) b = 0.f;
+          store2(out + (size_t)row * cols + col, a, b, col + 1 < cols, vec);
+        }
       }
     }
-    __syncthreads();
   }
-
-  mgp::store_acc(acc, stage[warp], out, M, M, M, m0 + wr * WR, p0 + wc * WC,
-                 true, lane);
 }
 
-template <bool kScaled>
-__global__ void __launch_bounds__(NTHR)
-tril_da_kernel(const __nv_bfloat16* __restrict__ L,
-               const __nv_bfloat16* __restrict__ B,
-               const float* __restrict__ G, float* __restrict__ dA, int M, int N,
-               int K) {
-  __shared__ __align__(32) __nv_bfloat16 Ls[BT * LDT];   // [m][m']
-  __shared__ __align__(32) __nv_bfloat16 Ws[BT * LDT];   // [n][m']
-  __shared__ __align__(32) float stage[NTHR / 32][16 * 16];
-
-  const int n0 = blockIdx.x * BT;
-  const int m0 = (gridDim.y - 1 - blockIdx.y) * BT;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wr = warp / (BT / WC);
-  const int wc = warp % (BT / WC);
-  const bool vec = (M % 8) == 0;
-  // The m'-run of one k: tiles up to and including the diagonal.
-  const int per_k = (min(m0 + BT, M) + BK - 1) / BK;
-  const int steps = K * per_k;
-
-  mgp::Acc acc[FR][FC];
+template <int SL>
+__device__ __forceinline__ void zero_acc(float (&acc)[SL][Tile<SL>::NACC]) {
 #pragma unroll
-  for (int i = 0; i < FR; ++i)
+  for (int i = 0; i < SL; ++i)
 #pragma unroll
-    for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < Tile<SL>::NACC; ++j) acc[i][j] = 0.f;
+}
 
-  uint4 rl[CH], rw[CH];
-  float rg[CH] = {};
-  auto fetch = [&](int s) {
-    const int k = s / per_k, p0 = (s % per_k) * BK;
-    const __nv_bfloat16* Lk = L + (size_t)k * M * M;
-    const __nv_bfloat16* Bk = B + (size_t)k * N * M;
+template <int SL>
+__device__ __forceinline__ void fence_acc(float (&acc)[SL][Tile<SL>::NACC]) {
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * NTHR;
-      const int r = e / (BK / 8), c8 = (e % (BK / 8)) * 8;
-      rl[c] = load_row8(Lk, m0 + r, M, p0 + c8, M, vec);
-      rw[c] = load_row8(Bk, n0 + r, N, p0 + c8, M, vec);
-      if constexpr (kScaled) rg[c] = n0 + r < N ? G[(size_t)k * N + n0 + r] : 0.f;
+  for (int i = 0; i < SL; ++i) fence_operands(acc[i]);
+}
+
+// The stage ring: full / empty barriers, the stage and its phase.
+struct Ring {
+  uint8_t* smem;
+  uint64_t* full;
+  uint64_t* empty;
+  float* g;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ uint8_t* st() const { return smem + stage * STAGE_BYTES; }
+  __device__ float* gs() const { return g + stage * (GSLOT / 4); }
+  __device__ void next() {
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+};
+
+__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  Ring r;
+  r.smem = smem;
+  r.g = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  r.full = reinterpret_cast<uint64_t*>(smem + STAGES * (STAGE_BYTES + GSLOT));
+  r.empty = r.full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 2);   // one arrival per consumer warpgroup
     }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
 
-  fetch(0);
-  for (int s = 0; s < steps; ++s) {
-    const int p0 = (s % per_k) * BK;
+// The consumers' side of a stage: wait for it to land ...
+__device__ __forceinline__ uint8_t* stage_wait(const Ring& ring) {
+  mbar_wait(&ring.full[ring.stage], ring.phase);
+  return ring.st();
+}
+
+// ... publish what they stored into it to wgmma ...
+__device__ __forceinline__ void stage_edited() {
+  fence_proxy_async();
+  consumers_sync();
+}
+
+// ... and, its wgmma group issued, keep the group in flight, wait for the
+// one before it and hand that stage back to the producer.
+template <int SL>
+__device__ __forceinline__ void stage_issued(Ring& ring, int& held,
+                                             float (&acc)[SL][Tile<SL>::NACC], int lt) {
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_acc<SL>(acc);
+  if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
+  held = ring.stage;
+  ring.next();
+}
+
+__device__ __forceinline__ void drain(Ring& ring, int& held, int lt) {
+  wgmma_wait<0>();
+  if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
+  held = -1;
+}
+
+// Tile `it` of CTA b of G: a snake, so a CTA given a long tile in one wave
+// gets a short one in the next.
+__device__ __forceinline__ int snake(int it) {
+  return it * gridDim.x + ((it & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// dA tile t -> its first row: the m-tiles from the bottom (the longest
+// runs first), the n-tiles of one m-tile adjacent.
+template <int SL>
+__device__ __forceinline__ int da_m0(int t, int mtc, int ntc) {
+  return (mtc - 1 - t / ntc) * Tile<SL>::BM;
+}
+
+// --- The register-fed variant (tile 2): W is wgmma's A operand, loaded
+// from its TMA box with ldmatrix, scaled in registers and fed to wgmma
+// m64n256 from there; the L / A box is B (256 rows, K-major).  The output
+// tile is the same 256 (m) x 128 (n or m') as tile 0's, computed
+// transposed: warpgroup wg owns its W rows 64 wg .. + 63.  W then costs
+// shared memory only its TMA write and one read.
+
+// bf16(f32(v) * g) of a pair of bf16, scaled by (g0, g1).
+__device__ __forceinline__ uint32_t scale2(uint32_t v, float g0, float g1) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(f.x * g0, f.y * g1);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int e = tid + c * NTHR;
-      const int r = e / (BK / 8), c8 = (e % (BK / 8)) * 8;
-      Pack8 p;
-      p.u = rl[c];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (m0 + r < p0 + c8 + q) p.s[q] = 0;   // strictly upper
-      *reinterpret_cast<uint4*>(&Ls[r * LDT + c8]) = p.u;
-      *reinterpret_cast<uint4*>(&Ws[r * LDT + c8]) = w8<kScaled>(rw[c], rg[c]);
-    }
-    __syncthreads();
-    if (s + 1 < steps) fetch(s + 1);
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Writes a warpgroup's transposed 64 x 256 slab: acc[4 c + 2 h + e] is the
+// output's column c0 + 64 wg + 16 wq + lane / 4 + 8 h and row r0 + 8 c + 2
+// (lane % 4) + e of out [rows, cols]; lower: 0 where row < column.
+__device__ __forceinline__ void store_tile_t(float (&acc)[128], float* out, int rows, int cols,
+                                             int r0, int c0, bool lower, int wg, int lt) {
+  const int lane = lt % 32, wq = lt / 32;
+  const int cb = c0 + 64 * wg + 16 * wq + lane / 4;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // W^T as matrix_b: element (m', n) sits at Ws[n * LDT + m'].
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[FC];
+  for (int c = 0; c < 32; ++c)
 #pragma unroll
-      for (int j = 0; j < FC; ++j)
-        wmma::load_matrix_sync(fb[j], &Ws[(wc * WC + j * 16) * LDT + kk], LDT);
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + 8 * c + 2 * (lane % 4) + e;
 #pragma unroll
-      for (int i = 0; i < FR; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, &Ls[(wr * WR + i * 16) * LDT + kk], LDT);
-#pragma unroll
-        for (int j = 0; j < FC; ++j) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int col = cb + 8 * h;
+        if (row < rows && col < cols)
+          out[(size_t)row * cols + col] = (lower && row < col) ? 0.f : acc[4 * c + 2 * h + e];
       }
     }
-    __syncthreads();
-  }
+}
 
-  mgp::store_acc(acc, stage[warp], dA, N, M, N, m0 + wr * WR, n0 + wc * WC,
-                 false, lane);
+// The register-fed stage, in two steps: wait for the group in flight and
+// hand its stage back (after which the fragments may be loaded) ...
+__device__ __forceinline__ void rs_wait(Ring& ring, int& held, float (&acc)[128], int lt) {
+  wgmma_wait<0>();
+  fence_operands(acc);
+  if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
+  held = -1;
+}
+
+// ... then issue this stage's group from the fragments `a` over the B box
+// at `bbase`.
+template <int TB>
+__device__ __forceinline__ void rs_issue(Ring& ring, int& held, float (&acc)[128],
+                                         uint32_t (&a)[4][4], uint32_t bbase) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BOX / 16; ++kk)
+    wgmma_m64n256_rs<TB>(acc, a[kk], desc_k_sw128(bbase + kk * 32));
+  wgmma_commit();
+  fence_frags(a);
+  held = ring.stage;
+  ring.next();
 }
 
 template <bool kScaled>
-int launch_dl(const void* A, const void* B, const void* G, void* dL, int M,
-              int N, int K, void* stream) {
-  if (M > 0 && N > 0 && K > 0) {
-    const int nt = (M + BT - 1) / BT;
-    dim3 grid(nt, nt, K);
-    tril_dl_kernel<kScaled><<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
-        static_cast<const float*>(G), static_cast<float*>(dL), M, N);
+__device__ __forceinline__ void da_consumer_rs(Ring& ring, float* dA, int M, int N, int K,
+                                               int mtc, int ntc, int tiles, int tid) {
+  using T = Tile<2>;
+  const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
+  // This lane's ldmatrix row of the W box (matrix lane / 8: rows + 8 for
+  // odd, columns + 8 for the upper two) and the n of its fragment's a0.
+  const int wrow = 64 * wg + 16 * wq + 8 * ((lane / 8) & 1) + lane % 8;
+  const int frow = 64 * wg + 16 * wq + lane / 4;
+  float acc[128];
+  uint32_t a[4][4];
+  int held = -1;
+  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+    const int m0 = da_m0<2>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
+    const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;
+#pragma unroll
+    for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+    for (int k = 0; k < K; ++k)
+      for (int q = 0; q < per_k; ++q) {
+        const int p = q * BOX;
+        uint8_t* st = stage_wait(ring);
+        if (p + BOX - 1 > m0) {             // L's box straddles the diagonal
+          zero_upper<T::BM, 1, NCONS>(st, m0 - p, tid);
+          stage_edited();
+        }
+        const uint32_t base = smem_u32(st);
+        const float glo = kScaled ? ring.gs()[frow] : 1.f;
+        const float ghi = kScaled ? ring.gs()[frow + 8] : 1.f;
+        rs_wait(ring, held, acc, lt);
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk) {
+          const int g = 2 * kk + lane / 16;
+          ldsm_x4(base + T::XBYTES + wrow * 128 + ((g ^ (wrow & 7)) << 4), a[kk]);
+          if (kScaled) {
+            a[kk][0] = scale2(a[kk][0], glo, glo);
+            a[kk][1] = scale2(a[kk][1], ghi, ghi);
+            a[kk][2] = scale2(a[kk][2], glo, glo);
+            a[kk][3] = scale2(a[kk][3], ghi, ghi);
+          }
+        }
+        rs_issue<0>(ring, held, acc, a, base);
+      }
+    drain(ring, held, lt);
+    fence_operands(acc);
+    store_tile_t(acc, dA, M, N, m0, n0, false, wg, lt);
   }
+}
+
+template <bool kScaled, int SL>
+__device__ __forceinline__ void da_consumer_ss(Ring& ring, float* dA, int M, int N, int K,
+                                               int mtc, int ntc, int tiles, int tid) {
+  using T = Tile<SL>;
+  const int wg = tid / 128, lt = tid % 128;
+  float acc[SL][T::NACC];
+  int held = -1;
+  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+    const int m0 = da_m0<SL>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
+    const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;   // m'-stages to the diagonal
+    zero_acc<SL>(acc);
+    for (int k = 0; k < K; ++k)
+      for (int q = 0; q < per_k; ++q) {
+        const int p = q * BOX;
+        const bool diag = p + BOX - 1 > m0;   // L's box straddles the diagonal
+        uint8_t* st = stage_wait(ring);
+        if (kScaled) scale_rows<T::BW, T::BW>(st + T::XBYTES, ring.gs(), tid);
+        if (diag) zero_upper<T::BM, 1, NCONS>(st, m0 - p, tid);
+        if (kScaled || diag) stage_edited();
+        const uint32_t base = smem_u32(st);
+        fence_acc<SL>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < SL; ++i)
+            wgmma_m64<0, 0, T::BW>(acc[i],
+                                   desc_k_sw128(base + 64 * (SL * wg + i) * 128 + kk * 32),
+                                   desc_k_sw128(base + T::XBYTES + kk * 32));
+        stage_issued<SL>(ring, held, acc, lt);
+      }
+    drain(ring, held, lt);
+    store_tile<SL>(acc, dA, M, N, m0, n0, false, wg, lt);
+  }
+}
+
+template <bool kScaled, int MODE>
+__global__ void __launch_bounds__(NTHR, 1)
+tril_da_kernel(const __grid_constant__ CUtensorMap mapL,
+               const __grid_constant__ CUtensorMap mapW,
+               const __grid_constant__ CUtensorMap mapG, float* __restrict__ dA, int M,
+               int N, int K) {
+  constexpr int SL = MODE == 1 ? 1 : 2;
+  using T = Tile<SL>;
+  extern __shared__ uint8_t smem_raw[];
+  Ring ring = ring_init(smem_raw);
+  const int tid = threadIdx.x;
+  const int mtc = (M + T::BM - 1) / T::BM, ntc = (N + T::BW - 1) / T::BW;
+  const int tiles = mtc * ntc;
+
+  if (tid >= NCONS) {              // the producer: one thread issues TMA
+    producer_regs();
+    if (tid == NCONS) {
+      constexpr uint32_t bytes = STAGE_BYTES + (kScaled ? T::BW * 4 : 0);
+      for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+        const int m0 = da_m0<SL>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
+        const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;
+        for (int k = 0; k < K; ++k)
+          for (int q = 0; q < per_k; ++q) {
+            mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
+            uint64_t* bar = &ring.full[ring.stage];
+            mbar_expect_tx(bar, bytes);
+            tma_load_3d(ring.st(), &mapL, bar, q * BOX, m0, k);
+            tma_load_3d(ring.st() + T::XBYTES, &mapW, bar, q * BOX, n0, k);
+            if (kScaled) tma_load_2d(ring.gs(), &mapG, bar, n0, k);
+            ring.next();
+          }
+      }
+    }
+  } else {
+    consumer_regs();
+    if constexpr (MODE == 2)
+      da_consumer_rs<kScaled>(ring, dA, M, N, K, mtc, ntc, tiles, tid);
+    else
+      da_consumer_ss<kScaled, SL>(ring, dA, M, N, K, mtc, ntc, tiles, tid);
+  }
+}
+
+// dL tile t -> (k, m0, p0): first the tiles on or below the diagonal of
+// every k, then those above it; returns whether t is below.
+template <int SL>
+__device__ __forceinline__ bool dl_coords(int t, int M, int K, int lower, int& k, int& m0,
+                                          int& p0) {
+  using T = Tile<SL>;
+  const int mtc = (M + T::BM - 1) / T::BM, ntc = (M + T::BW - 1) / T::BW;
+  const bool low = t < K * lower;
+  const int per_k = low ? lower : mtc * ntc - lower;
+  if (!low) t -= K * lower;
+  k = t / per_k;
+  int o = t - k * per_k;
+  m0 = p0 = 0;
+  for (int i = 0; i < mtc; ++i) {
+    const int jmax = min(ntc - 1, (min(M, (i + 1) * T::BM) - 1) / T::BW);
+    const int count = low ? jmax + 1 : ntc - 1 - jmax;
+    if (o < count) {
+      m0 = i * T::BM;
+      p0 = (low ? o : jmax + 1 + o) * T::BW;
+      break;
+    }
+    o -= count;
+  }
+  return low;
+}
+
+template <bool kScaled>
+__device__ __forceinline__ void dl_consumer_rs(Ring& ring, float* dL, int M, int stages,
+                                               int K, int lower, int tiles, int tid) {
+  using T = Tile<2>;
+  const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
+  // W's box wg holds this warpgroup's 64 m' as columns and n as rows, so
+  // its fragments come transposed: this lane gives row n = 16 kk + 8 (lane
+  // / 16) + lane % 8 and granule 2 wq + (lane / 8) % 2 of the box; its a0
+  // holds n = 16 kk + 2 (lane % 4) + {0, 1}, a2 those + 8 (a1, a3 alike).
+  const int nrow = 8 * (lane / 16) + lane % 8;
+  const int gran = 2 * wq + (lane / 8) % 2;
+  const int fn = 2 * (lane % 4);
+  float acc[128];
+  uint32_t a[4][4];
+  int held = -1;
+  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+    int k, m0, p0;
+    const bool low = dl_coords<2>(t, M, K, lower, k, m0, p0);
+#pragma unroll
+    for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+    if (low) {
+      for (int s = 0; s < stages; ++s) {
+        uint8_t* st = stage_wait(ring);
+        const uint32_t base = smem_u32(st);
+        const float* gs = ring.gs();
+        rs_wait(ring, held, acc, lt);
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk) {
+          const int n = 16 * kk + nrow;
+          ldsm_x4_trans(base + T::XBYTES + wg * CHUNK + n * 128 + ((gran ^ (n & 7)) << 4),
+                        a[kk]);
+          if (kScaled) {
+            const float2 g0 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn);
+            const float2 g8 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn + 8);
+            a[kk][0] = scale2(a[kk][0], g0.x, g0.y);
+            a[kk][1] = scale2(a[kk][1], g0.x, g0.y);
+            a[kk][2] = scale2(a[kk][2], g8.x, g8.y);
+            a[kk][3] = scale2(a[kk][3], g8.x, g8.y);
+          }
+        }
+        rs_issue<0>(ring, held, acc, a, base);
+      }
+      drain(ring, held, lt);
+      fence_operands(acc);
+    }
+    store_tile_t(acc, dL + (size_t)k * M * M, M, M, m0, p0, true, wg, lt);
+  }
+}
+
+template <bool kScaled, int SL>
+__device__ __forceinline__ void dl_consumer_ss(Ring& ring, float* dL, int M, int stages,
+                                               int K, int lower, int tiles, int tid) {
+  using T = Tile<SL>;
+  const int wg = tid / 128, lt = tid % 128;
+  float acc[SL][T::NACC];
+  int held = -1;
+  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+    int k, m0, p0;
+    const bool low = dl_coords<SL>(t, M, K, lower, k, m0, p0);
+    zero_acc<SL>(acc);               // a tile above the diagonal stores these
+    if (low) {
+      for (int s = 0; s < stages; ++s) {
+        uint8_t* st = stage_wait(ring);
+        if (kScaled) {
+          scale_rows<T::BW, BOX>(st + T::XBYTES, ring.gs(), tid);
+          stage_edited();
+        }
+        const uint32_t base = smem_u32(st);
+        fence_acc<SL>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < SL; ++i)
+            wgmma_m64<0, 1, T::BW>(acc[i],
+                                   desc_k_sw128(base + 64 * (SL * wg + i) * 128 + kk * 32),
+                                   desc_mn_sw128(base + T::XBYTES + kk * 2048, CHUNK, 1024));
+        stage_issued<SL>(ring, held, acc, lt);
+      }
+      drain(ring, held, lt);
+    }
+    store_tile<SL>(acc, dL + (size_t)k * M * M, M, M, m0, p0, true, wg, lt);
+  }
+}
+
+template <bool kScaled, int MODE>
+__global__ void __launch_bounds__(NTHR, 1)
+tril_dl_kernel(const __grid_constant__ CUtensorMap mapA,
+               const __grid_constant__ CUtensorMap mapW,
+               const __grid_constant__ CUtensorMap mapG, float* __restrict__ dL, int M,
+               int N, int K, int lower) {
+  constexpr int SL = MODE == 1 ? 1 : 2;
+  using T = Tile<SL>;
+  extern __shared__ uint8_t smem_raw[];
+  Ring ring = ring_init(smem_raw);
+  const int tid = threadIdx.x;
+  const int tiles = K * ((M + T::BM - 1) / T::BM) * ((M + T::BW - 1) / T::BW);
+  const int stages = (N + BOX - 1) / BOX;
+
+  if (tid >= NCONS) {              // the producer: one thread issues TMA
+    producer_regs();
+    if (tid == NCONS) {
+      constexpr uint32_t bytes = STAGE_BYTES + (kScaled ? BOX * 4 : 0);
+      for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+        int k, m0, p0;
+        if (!dl_coords<SL>(t, M, K, lower, k, m0, p0)) continue;
+        for (int s = 0; s < stages; ++s) {
+          mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
+          uint64_t* bar = &ring.full[ring.stage];
+          mbar_expect_tx(bar, bytes);
+          tma_load_2d(ring.st(), &mapA, bar, s * BOX, m0);
+#pragma unroll
+          for (int h = 0; h < T::BW / BOX; ++h)
+            tma_load_3d(ring.st() + T::XBYTES + h * CHUNK, &mapW, bar, p0 + h * BOX, s * BOX, k);
+          if (kScaled) tma_load_2d(ring.gs(), &mapG, bar, s * BOX, k);
+          ring.next();
+        }
+      }
+    }
+  } else {
+    consumer_regs();
+    if constexpr (MODE == 2)
+      dl_consumer_rs<kScaled>(ring, dL, M, stages, K, lower, tiles, tid);
+    else
+      dl_consumer_ss<kScaled, SL>(ring, dL, M, stages, K, lower, tiles, tid);
+  }
+}
+
+bool encode_g(CUtensorMap* map, const void* G, int K, int ldn, int box) {
+  const cuuint64_t dims[2] = {(cuuint64_t)ldn, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)ldn * 4};
+  const cuuint32_t boxd[2] = {(cuuint32_t)box, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, G, dims, strides, boxd,
+                CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// A persistent launch of `kernel` over `tiles` tiles.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, long long tiles, void* stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kScaled>
-int launch_da(const void* L, const void* B, const void* G, void* dA, int M,
-              int N, int K, void* stream) {
-  if (M > 0 && N > 0 && K > 0) {
-    dim3 grid((N + BT - 1) / BT, (M + BT - 1) / BT);
-    tril_da_kernel<kScaled><<<grid, NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(L), static_cast<const __nv_bfloat16*>(B),
-        static_cast<const float*>(G), static_cast<float*>(dA), M, N, K);
+// W [K, N, ldm] bf16 as a 3-D map read in boxes of `rows` n-rows of 64 m'.
+bool encode_w(CUtensorMap* map, const void* W, int N, int K, int ldm, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)ldm, (cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[2] = {(cuuint64_t)ldm * 2, (cuuint64_t)N * ldm * 2};
+  return encode_bf16(map, 3, W, dims, strides, rows);
+}
+
+template <bool kScaled, int MODE>
+int launch_da(const void* L, const void* W, const void* G, void* dA, int M, int N, int K,
+              int ldm, int ldn, void* stream) {
+  using T = Tile<MODE == 1 ? 1 : 2>;
+  CUtensorMap mapL, mapW, mapG;
+  const cuuint64_t dimsL[3] = {(cuuint64_t)ldm, (cuuint64_t)ldm, (cuuint64_t)K};
+  const cuuint64_t strideL[2] = {(cuuint64_t)ldm * 2, (cuuint64_t)ldm * ldm * 2};
+  if (!encode_bf16(&mapL, 3, L, dimsL, strideL, T::BM) ||
+      !encode_w(&mapW, W, N, K, ldm, T::BW) ||
+      (kScaled ? !encode_g(&mapG, G, K, ldn, T::BW) : !encode_w(&mapG, W, N, K, ldm, T::BW)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + T::BW - 1) / T::BW);
+  return launch(tril_da_kernel<kScaled, MODE>, tiles, stream, mapL, mapW, mapG,
+                static_cast<float*>(dA), M, N, K);
+}
+
+template <bool kScaled, int MODE>
+int launch_dl(const void* A, const void* W, const void* G, void* dL, int M, int N, int K,
+              int ldn, int ldm, void* stream) {
+  using T = Tile<MODE == 1 ? 1 : 2>;
+  CUtensorMap mapA, mapW, mapG;
+  const cuuint64_t dimsA[2] = {(cuuint64_t)ldn, (cuuint64_t)M};
+  const cuuint64_t strideA[1] = {(cuuint64_t)ldn * 2};
+  if (!encode_bf16(&mapA, 2, A, dimsA, strideA, T::BM) ||
+      !encode_w(&mapW, W, N, K, ldm, BOX) ||
+      (kScaled ? !encode_g(&mapG, G, K, ldn, BOX) : !encode_w(&mapG, W, N, K, ldm, BOX)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mtc = (M + T::BM - 1) / T::BM, ntc = (M + T::BW - 1) / T::BW;
+  int lower = 0;   // tiles on or below the diagonal of one k
+  for (int i = 0; i < mtc; ++i) {
+    const int jmax = (((i + 1) * T::BM < M ? (i + 1) * T::BM : M) - 1) / T::BW;
+    lower += (jmax < ntc - 1 ? jmax : ntc - 1) + 1;
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(tril_dl_kernel<kScaled, MODE>, (long long)K * mtc * ntc, stream, mapA, mapW,
+                mapG, static_cast<float*>(dL), M, N, K, lower);
+}
+
+bool bad_args(int M, int N, int ldn, int ldm, int tile) {
+  return ldn % 8 != 0 || ldm % 8 != 0 || ldn < N || ldm < M || tile < 0 || tile > 2;
+}
+
+template <bool kScaled>
+int dispatch_dl(const void* A, const void* W, const void* G, void* dL, int M, int N, int K,
+                int ldn, int ldm, int tile, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  if (bad_args(M, N, ldn, ldm, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tile) {
+    case 0: return launch_dl<kScaled, 0>(A, W, G, dL, M, N, K, ldn, ldm, stream);
+    case 1: return launch_dl<kScaled, 1>(A, W, G, dL, M, N, K, ldn, ldm, stream);
+    default: return launch_dl<kScaled, 2>(A, W, G, dL, M, N, K, ldn, ldm, stream);
+  }
+}
+
+template <bool kScaled>
+int dispatch_da(const void* L, const void* W, const void* G, void* dA, int M, int N, int K,
+                int ldm, int ldn, int tile, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  if (bad_args(M, N, ldn, ldm, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tile) {
+    case 0: return launch_da<kScaled, 0>(L, W, G, dA, M, N, K, ldm, ldn, stream);
+    case 1: return launch_da<kScaled, 1>(L, W, G, dA, M, N, K, ldm, ldn, stream);
+    default: return launch_da<kScaled, 2>(L, W, G, dA, M, N, K, ldm, ldn, stream);
+  }
 }
 
 }  // namespace
 
-// A16 [M, N] bf16, B16 [K, N, M] bf16, G [K, N] f32 -> dL [K, M, M] f32,
-// exactly lower-triangular.
-extern "C" int mgp_tril_dl(const void* A, const void* B, const void* G, void* dL,
-                           int M, int N, int K, void* stream) {
-  return launch_dl<true>(A, B, G, dL, M, N, K, stream);
+// `tile` picks the output tile: 0 for 256 x 128, 1 for 128 x 256, both with
+// W read by wgmma from shared memory, 2 for 256 x 128 with W fed to wgmma
+// from registers.  ldn and
+// ldm are N and M rounded up to multiples of 8 (the arrays' row strides).
+
+// A16 [M, ldn] bf16 (columns past N zero), B16 [K, N, ldm] bf16 (columns
+// past M zero), G [K, ldn] f32 -> dL [K, M, M] f32, exactly lower-triangular.
+extern "C" int mgp_tril_dl(const void* A, const void* B, const void* G, void* dL, int M,
+                           int N, int K, int ldn, int ldm, int tile, void* stream) {
+  return dispatch_dl<true>(A, B, G, dL, M, N, K, ldn, ldm, tile, stream);
 }
 
-// L16 [K, M, M] bf16 (upper triangle ignored), B16 [K, N, M] bf16,
-// G [K, N] f32 -> dA [M, N] f32.
-extern "C" int mgp_tril_da(const void* L, const void* B, const void* G, void* dA,
-                           int M, int N, int K, void* stream) {
-  return launch_da<true>(L, B, G, dA, M, N, K, stream);
+// L16 [K, ldm, ldm] bf16 (upper triangle ignored; rows and columns past M
+// zero), B16 [K, N, ldm] bf16, G [K, ldn] f32 -> dA [M, N] f32.
+extern "C" int mgp_tril_da(const void* L, const void* B, const void* G, void* dA, int M,
+                           int N, int K, int ldm, int ldn, int tile, void* stream) {
+  return dispatch_da<true>(L, B, G, dA, M, N, K, ldm, ldn, tile, stream);
 }
 
-// A16 [M, N] bf16, W16 [K, N, M] bf16 -> dL [K, M, M] f32, exactly
+// A16 [M, ldn] bf16, W16 [K, N, ldm] bf16 -> dL [K, M, M] f32, exactly
 // lower-triangular.
-extern "C" int mgp_tril_dl_w(const void* A, const void* W, void* dL, int M,
-                             int N, int K, void* stream) {
-  return launch_dl<false>(A, W, nullptr, dL, M, N, K, stream);
+extern "C" int mgp_tril_dl_w(const void* A, const void* W, void* dL, int M, int N, int K,
+                             int ldn, int ldm, int tile, void* stream) {
+  return dispatch_dl<false>(A, W, nullptr, dL, M, N, K, ldn, ldm, tile, stream);
 }
 
-// L16 [K, M, M] bf16 (upper triangle ignored), W16 [K, N, M] bf16 -> dA [M, N]
-// f32.
-extern "C" int mgp_tril_da_w(const void* L, const void* W, void* dA, int M,
-                             int N, int K, void* stream) {
-  return launch_da<false>(L, W, nullptr, dA, M, N, K, stream);
+// L16 [K, ldm, ldm] bf16 (upper triangle ignored), W16 [K, N, ldm] bf16 ->
+// dA [M, N] f32.
+extern "C" int mgp_tril_da_w(const void* L, const void* W, void* dA, int M, int N, int K,
+                             int ldm, int tile, void* stream) {
+  return dispatch_da<false>(L, W, nullptr, dA, M, N, K, ldm, (N + 7) / 8 * 8, tile, stream);
 }

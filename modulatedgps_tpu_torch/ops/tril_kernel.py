@@ -12,16 +12,17 @@ the source of W).  On the H100 each is tensor-core bound (K*N*M^2/2 =
 5.5e11 multiply-adds a layer at M=4096, N=8192, K=8), so each holds fp32
 accumulators over the whole contraction, visits only the tiles on or below
 the diagonal, and zeroes L's strictly-upper entries before they reach the
-tensor cores.  The forward is Hopper's shape (TMA loads into a ring of
-shared-memory stages, wgmma from two warpgroups, a persistent grid); the
-backward kernels run wmma fragments.  The forward's tensor maps need
-16-byte row strides: ``_tma_operands`` pads A16 to a multiple of 8
-columns and L16 to a multiple of 8 rows and columns, with zeros, where N
-or M is not one (a shape rule of the kernel, which the main path's shapes
-already meet).  The square-sum's backward
-kernels form W = bf16(B16 * G) while staging each tile (G = 2 * the
-cotangent of the square-sum), so no W array reaches device memory;
-atl_matmul's read W16 = bf16(dB).
+tensor cores.  All four are Hopper's shape (TMA loads into a ring of
+shared-memory stages, wgmma from two warpgroups, a persistent grid; the
+plumbing is csrc/hopper.cuh).  Their tensor maps need 16-byte row
+strides: the wrappers pad A16 (and G) to a multiple of 8 columns and L16
+to a multiple of 8 rows and columns, and B16 / W16 to a multiple of 8
+columns, with zeros, where N or M is not one (a shape rule of the kernels,
+which the main path's shapes already meet).  The square-sum's backward
+kernels form W = bf16(B16 * G) in shared memory after each tile lands
+(G = 2 * the cotangent of the square-sum), so no W array reaches device
+memory; atl_matmul's read W16 = bf16(dB).  ``BWD_TILE`` picks each
+backward kernel's arrangement of its output tile and of W.
 
 As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and ``atl_matmul``,
 and the square-sum over m' runs outside the kernel: B16 stays the forward
@@ -115,16 +116,35 @@ def _check_fwd_shapes(what, A16, L16):
     return _check_device(what, A16)
 
 
+# The backward kernels' arrangement, by wrapper (csrc/tril_bwd.cu): 0 for
+# 256 x 128 output tiles and 1 for 128 x 256, W read by wgmma from shared
+# memory; 2 for 256 x 128 with W fed to wgmma from registers.
+BWD_TILE = {"tril_sq_dl": 2, "tril_sq_da": 2, "tril_dl": 2, "tril_da": 2}
+
+
+def _pad8(t, dims):
+    """t with its last ``dims`` dimensions padded with zeros to multiples of
+    8; t itself where they already are."""
+    pad = []
+    for size in reversed(t.shape[t.ndim - dims:]):
+        pad += [0, -size % 8]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
 def _tma_operands(A16, L16):
     """(A16, L16) with row strides the forward kernel's TMA can take: A16
     [M, N] padded with zero columns to a multiple of 8, L16 [K, M, M] with
     zero rows and columns to a multiple of 8, each only where needed."""
-    M, N = A16.shape
-    if N % 8:
-        A16 = torch.nn.functional.pad(A16, (0, -N % 8))
-    if M % 8:
-        L16 = torch.nn.functional.pad(L16, (0, -M % 8, 0, -M % 8))
-    return A16, L16
+    return _pad8(A16, 1), _pad8(L16, 2)
+
+
+def _tma_bwd_operands(X16, B16, G=None):
+    """The backward kernels' operands with TMA row strides: X16 is A16 [M,
+    N] (padded as the forward's A) or L16 [K, M, M] (as the forward's L);
+    B16 / W16 [K, N, M] get zero columns to a multiple of 8 and G [K, N]
+    too, each only where needed."""
+    return (_pad8(X16, X16.ndim - 1), _pad8(B16, 1),
+            None if G is None else _pad8(G, 1))
 
 
 def _fwd(what, entry, out_dtype, A16, L16):
@@ -173,18 +193,43 @@ def _check_bwd_shapes(what, operand, X16, B16, G=None):
     return K, N, M
 
 
+def _dl(what, entry, A16, B16, G=None):
+    """Launch a dL entry point: -> [K, M, M] fp32, exactly lower-triangular."""
+    check_bwd_launch_args(what, A16, B16, G)
+    K, N, M = B16.shape
+    A16, B16, G = _tma_bwd_operands(A16, B16, G)
+    dL = torch.empty((K, M, M), dtype=torch.float32, device=A16.device)
+    args = () if G is None else (G.data_ptr(),)
+    code = getattr(_native.library(), entry)(
+        A16.data_ptr(), B16.data_ptr(), *args, dL.data_ptr(), M, N, K,
+        A16.shape[1], B16.shape[2], BWD_TILE[what],
+        _native.stream_ptr(A16.device))
+    _native.check(code, what)
+    return dL
+
+
+def _da(what, entry, L16, B16, G=None):
+    """Launch a dA entry point: -> [M, N] fp32."""
+    check_bwd_launch_args(what, L16, B16, G)
+    K, N, M = B16.shape
+    L16, B16, G = _tma_bwd_operands(L16, B16, G)
+    dA = torch.empty((M, N), dtype=torch.float32, device=L16.device)
+    args = () if G is None else (G.data_ptr(),)
+    lds = (L16.shape[2],) if G is None else (L16.shape[2], G.shape[1])
+    code = getattr(_native.library(), entry)(
+        L16.data_ptr(), B16.data_ptr(), *args, dA.data_ptr(), M, N, K, *lds,
+        BWD_TILE[what], _native.stream_ptr(L16.device))
+    _native.check(code, what)
+    return dA
+
+
 def tril_dl(A16, W16):
     """dL[k, m, m'] = sum_n A16[m, n] W16[k, n, m'] for m >= m', exactly 0
     above the diagonal: -> [K, M, M] fp32 (atl_matmul's dL)."""
-    K, N, M = _check_bwd_shapes("tril_dl", "A16", A16, W16)
+    _check_bwd_shapes("tril_dl", "A16", A16, W16)
     if not _check_device("tril_dl", A16):
         return tril_dl_plain(A16, W16)
-    check_bwd_launch_args("tril_dl", A16, W16)
-    dL = torch.empty((K, M, M), dtype=torch.float32, device=A16.device)
-    code = _native.library().mgp_tril_dl_w(
-        A16.data_ptr(), W16.data_ptr(), dL.data_ptr(), M, N, K,
-        _native.stream_ptr(A16.device))
-    _native.check(code, "tril_dl")
+    dL = _dl("tril_dl", "mgp_tril_dl_w", A16, W16)
     tril_dl.launches += 1
     return dL
 
@@ -192,15 +237,10 @@ def tril_dl(A16, W16):
 def tril_da(L16, W16):
     """dA[m, n] = sum_k sum_{m' <= m} L16[k, m, m'] W16[k, n, m'] (L16's
     upper triangle ignored): -> [M, N] fp32 (atl_matmul's dA)."""
-    K, N, M = _check_bwd_shapes("tril_da", "L16", L16, W16)
+    _check_bwd_shapes("tril_da", "L16", L16, W16)
     if not _check_device("tril_da", L16):
         return tril_da_plain(L16, W16)
-    check_bwd_launch_args("tril_da", L16, W16)
-    dA = torch.empty((M, N), dtype=torch.float32, device=L16.device)
-    code = _native.library().mgp_tril_da_w(
-        L16.data_ptr(), W16.data_ptr(), dA.data_ptr(), M, N, K,
-        _native.stream_ptr(L16.device))
-    _native.check(code, "tril_da")
+    dA = _da("tril_da", "mgp_tril_da_w", L16, W16)
     tril_da.launches += 1
     return dA
 
@@ -208,15 +248,10 @@ def tril_da(L16, W16):
 def tril_sq_dl(A16, B16, G):
     """dL[k, m, m'] = sum_n A16[m, n] bf16(B16[k, n, m'] G[k, n]) for
     m >= m', exactly 0 above the diagonal: -> [K, M, M] fp32."""
-    K, N, M = _check_bwd_shapes("tril_sq_dl", "A16", A16, B16, G)
+    _check_bwd_shapes("tril_sq_dl", "A16", A16, B16, G)
     if not _check_device("tril_sq_dl", A16):
         return tril_sq_dl_plain(A16, B16, G)
-    check_bwd_launch_args("tril_sq_dl", A16, B16, G)
-    dL = torch.empty((K, M, M), dtype=torch.float32, device=A16.device)
-    code = _native.library().mgp_tril_dl(
-        A16.data_ptr(), B16.data_ptr(), G.data_ptr(), dL.data_ptr(), M, N, K,
-        _native.stream_ptr(A16.device))
-    _native.check(code, "tril_sq_dl")
+    dL = _dl("tril_sq_dl", "mgp_tril_dl", A16, B16, G)
     tril_sq_dl.launches += 1
     return dL
 
@@ -224,15 +259,10 @@ def tril_sq_dl(A16, B16, G):
 def tril_sq_da(L16, B16, G):
     """dA[m, n] = sum_k sum_{m' <= m} L16[k, m, m'] bf16(B16[k, n, m']
     G[k, n]) (L16's upper triangle ignored): -> [M, N] fp32."""
-    K, N, M = _check_bwd_shapes("tril_sq_da", "L16", L16, B16, G)
+    _check_bwd_shapes("tril_sq_da", "L16", L16, B16, G)
     if not _check_device("tril_sq_da", L16):
         return tril_sq_da_plain(L16, B16, G)
-    check_bwd_launch_args("tril_sq_da", L16, B16, G)
-    dA = torch.empty((M, N), dtype=torch.float32, device=L16.device)
-    code = _native.library().mgp_tril_da(
-        L16.data_ptr(), B16.data_ptr(), G.data_ptr(), dA.data_ptr(), M, N, K,
-        _native.stream_ptr(L16.device))
-    _native.check(code, "tril_sq_da")
+    dA = _da("tril_sq_da", "mgp_tril_da", L16, B16, G)
     tril_sq_da.launches += 1
     return dA
 
