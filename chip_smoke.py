@@ -18,10 +18,8 @@ Phases, each printing its own lines:
      small ragged shapes and at its main-path shape, with CUDA-event
      medians of the kernel, the plain version and, where one exists, one
      PyTorch call computing the same function, beside the kernel's bound;
-     the tril backward kernels (#6-#9) under each arrangement of their
-     output tile and W (tril_kernel.BWD_TILE), checked at aligned, padded
-     and M=1 shapes with NaN above L's diagonal and timed in turns at the
-     main shape;
+     the tril backward kernels (#6-#9) at aligned, padded and M=1 shapes
+     with NaN above L's diagonal;
      the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
@@ -161,10 +159,6 @@ NUM_SAMPLES, NUM_DATA, LR, TRAIN_STEPS = 16, 1_000_000, 5e-3, 6
 # (variance, lengthscale) of the north-star layers (bench.py:94-99).
 PRED_SE, ASSIGN_SE = (0.5, 0.5), (0.1, 1.0)
 LIK_VARIANCE = 0.5
-# The backward tril kernels' arrangements (tril_kernel.BWD_TILE).
-BWD_TILES = {0: "256 x 128, W from shared memory",
-             1: "128 x 256, W from shared memory",
-             2: "256 x 128, W from registers"}
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -435,10 +429,9 @@ def phase_kernels():
     # product; the plain versions here round W = bf16(B16 G) the same way
     # and accumulate in fp32 too (both sat within 4e-5 of the maximum on an
     # H100), so 3e-2 would pass a dropped tile of the m'-run.  L carries NaN
-    # above its diagonal; each output tile arrangement is checked.  The
-    # kernels' TMA needs 8-aligned rows: N=77 takes the padded A16 and G,
-    # M=197 the padded L16 and B16 too, M=136, N=264 and the main shape
-    # neither.
+    # above its diagonal.  The kernels' TMA needs 8-aligned rows: N=77 takes
+    # the padded A16 and G, M=197 the padded L16 and B16 too, M=136, N=264
+    # and the main shape neither.
     def tril_bwd_case(label, M, N, K, record):
         A = rand(M, N, scale=1 / math.sqrt(M))
         L = (torch.eye(M, device=dev) + 0.05 * rand(K, M, M))  # upper garbage
@@ -452,12 +445,10 @@ def phase_kernels():
                  tril_kernel.tril_sq_dl_plain, A16),
                 ("tril_sq_da", tril_kernel.tril_sq_da,
                  tril_kernel.tril_sq_da_plain, L16)):
-            want = plain(x16, B16, G)
-            for tile in bwd_tiles(name):
-                got = fn(x16, B16, G)
-                torch.cuda.synchronize()
-                out.setdefault(name, bwd_check(name, f"{label} tile {tile}",
-                                               M, N, K, got, want))
+            got = fn(x16, B16, G)
+            torch.cuda.synchronize()
+            out[name] = bwd_check(name, label, M, N, K, got,
+                                  plain(x16, B16, G))
         if not record:
             return None
         W16 = (B16.float() * G[:, :, None]).to(torch.bfloat16)
@@ -478,7 +469,6 @@ def phase_kernels():
             log(f"  {name} M={M} N={N} K={K}: kernel {ms:.4f} ms "
                 f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
-            bwd_tile_times(name, lambda: fn(x16, B16, G), macs)
             res[name] = {"max_abs_err": out[name], "ms": ms,
                          "plain_ms": plain_ms,
                          **bound(nbytes, 2 * macs, "bf16"),
@@ -488,7 +478,7 @@ def phase_kernels():
     tril_bwd_case("ragged, padded A", 200, 77, 3, False)
     tril_bwd_case("ragged, aligned", 136, 264, 2, False)
     tril_bwd_case("ragged, padded A and L", 197, 333, 2, False)
-    tril_bwd_case("M=1", 1, 5, 2, False)
+    tril_bwd_case("ragged", 1, 5, 2, False)
     rows.update(tril_bwd_case("main", M_FULL, BATCH, K_EXPERTS, True))
 
     # --- tri_tt_matmul / tri_nt_matmul: 2e-3 of the largest magnitude, the
@@ -677,8 +667,7 @@ def trsm_t_tril_w_rows(rand, spd_chol):
     rows["trsm_lower_t"] = trsm_t_case("main", M_FULL, BATCH, True)
 
     # --- tril_dl / tril_da: 1e-3 of the largest magnitude (rtol and atol),
-    # as #8/#9's rows; dL exactly 0 above the diagonal; each output tile
-    # arrangement checked.
+    # as #8/#9's rows; dL exactly 0 above the diagonal.
     def tril_w_case(label, M, N, K, record):
         A16 = rand(M, N, scale=1 / math.sqrt(M)).to(torch.bfloat16)
         L = torch.eye(M, device=dev) + 0.05 * rand(K, M, M)
@@ -688,12 +677,9 @@ def trsm_t_tril_w_rows(rand, spd_chol):
         for name, fn, plain, x16 in (
                 ("tril_dl", tril_kernel.tril_dl, tril_kernel.tril_dl_plain, A16),
                 ("tril_da", tril_kernel.tril_da, tril_kernel.tril_da_plain, L16)):
-            want = plain(x16, W16)
-            for tile in bwd_tiles(name):
-                got = fn(x16, W16)
-                torch.cuda.synchronize()
-                errs.setdefault(name, bwd_check(name, f"{label} tile {tile}",
-                                                M, N, K, got, want))
+            got = fn(x16, W16)
+            torch.cuda.synchronize()
+            errs[name] = bwd_check(name, label, M, N, K, got, plain(x16, W16))
         if not record:
             return None
         Lcat16 = torch.tril(L.to(torch.bfloat16)).permute(1, 0, 2).reshape(
@@ -713,7 +699,6 @@ def trsm_t_tril_w_rows(rand, spd_chol):
             log(f"  {name} M={M} N={N} K={K}: kernel {ms:.4f} ms "
                 f"({2 * macs / ms / 1e9:.1f} TFLOP/s useful), plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
-            bwd_tile_times(name, lambda: fn(x16, W16), macs)
             res[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain_ms,
                          **bound(nbytes, 2 * macs, "bf16"),
@@ -723,22 +708,9 @@ def trsm_t_tril_w_rows(rand, spd_chol):
     tril_w_case("ragged, padded A", 200, 77, 3, False)
     tril_w_case("ragged, aligned", 136, 264, 2, False)
     tril_w_case("ragged, padded A and L", 197, 333, 2, False)
-    tril_w_case("M=1", 1, 5, 2, False)
+    tril_w_case("ragged", 1, 5, 2, False)
     rows.update(tril_w_case("main", M_FULL, N_GRID, K_EXPERTS, True))
     return rows
-
-
-def bwd_tiles(name):
-    """Set each arrangement of the backward kernel ``name``
-    (tril_kernel.BWD_TILE) in turn, the default first, and restore it."""
-    from modulatedgps_tpu_torch.ops import tril_kernel
-    default = tril_kernel.BWD_TILE[name]
-    try:
-        for tile in [default] + [t for t in BWD_TILES if t != default]:
-            tril_kernel.BWD_TILE[name] = tile
-            yield tile
-    finally:
-        tril_kernel.BWD_TILE[name] = default
 
 
 def bwd_check(name, label, M, N, K, got, want):
@@ -754,31 +726,6 @@ def bwd_check(name, label, M, N, K, got, want):
           + (f", {upper} non-zero above the diagonal"
              if name.endswith("dl") else "") + ", NaN above L's diagonal")
     return err
-
-
-def bwd_tile_times(name, call, macs):
-    """CUDA-event medians of ``call`` under each arrangement of the backward
-    kernel ``name``, in turns (the default first and last)."""
-    from modulatedgps_tpu_torch.ops import tril_kernel
-    default = tril_kernel.BWD_TILE[name]
-    order = [default] + [t for t in BWD_TILES if t != default]
-
-    def under(tile):
-        def run():
-            tril_kernel.BWD_TILE[name] = tile
-            call()
-        return run
-
-    try:
-        t = cuda_ms([under(x) for x in order + order[::-1]], 5)
-    finally:
-        tril_kernel.BWD_TILE[name] = default
-    n = len(order)
-    log(f"  {name} by arrangement (ms, in turns): " + ", ".join(
-        f"{tile}{' (default)' if tile == default else ''} {t[i]:.4f} / "
-        f"{t[2 * n - 1 - i]:.4f}" for i, tile in enumerate(order))
-        + f"; {2 * macs / min(t) / 1e9:.1f} TFLOP/s useful at the fastest; "
-        + "; ".join(f"{k}: {v}" for k, v in BWD_TILES.items()))
 
 
 def chol_quad_rows(rand, dev="cuda"):

@@ -37,10 +37,10 @@ _SIGNATURES = {
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mgp_tril_dl_w": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "mgp_tril_da_w": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_dl_w": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_da_w": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_tri_tt": (_P, _P, _P, _I, _I, _P),
     "mgp_tri_nt": (_P, _P, _P, _I, _P),
     "mgp_kl_fwd": (_P, _P, _P, _I, _I, _P),

@@ -1,6 +1,7 @@
-// Tile helpers shared by the wmma kernels (tril_fwd.cu, tril_bwd.cu,
-// trimm.cu): 16-byte staging loads with ragged-edge masking, and the fp32
-// epilogue that writes a warp's accumulator fragments to a row-major matrix.
+// Tile helpers shared by the kernels that stage through registers (trimm.cu,
+// quad.cu): 16-byte staging loads with ragged-edge masking, and the fp32
+// epilogue that writes a warp's wmma accumulator fragments to a row-major
+// matrix; Pack8 also serves hopper.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -26,46 +26,40 @@
 // warpgroup issues TMA loads (128-byte swizzle) into a ring of four 48 KB
 // stages with full / empty mbarriers, and two consumer warpgroups run
 // wgmma over each stage.  The producer's warpgroup hands registers to the
-// consumers (setmaxnreg 40 / 232): at 168 a thread ptxas serialized every
-// wgmma.  The entry point's `tile` picks one of three arrangements:
+// consumers (setmaxnreg 40 / 232): at the 168 a thread of 384 gets at
+// launch, ptxas serialized every wgmma.
 //
-//   0: 256 x 128 output tiles, each warpgroup two m64n128 slabs, W read by
-//      wgmma from shared memory;
-//   1: 128 x 256 tiles, one m64n256 slab, W from shared memory;
-//   2 (the wrappers' choice, fastest for all four on an H100): 256 x 128
-//      tiles computed transposed, W as wgmma's A operand in registers:
-//      each warpgroup loads its 64 W rows of a stage with ldmatrix
-//      (transposed for dL), scales them there and runs m64n256 over the
-//      256-row L / A box as B.  W then costs shared memory one TMA write
-//      and one read, where the in-place scaling of 0 and 1 adds a read
-//      and a write (the scaled forms ran ~1.2-1.5x the direct ones there).
-//      The fragments are loaded only after the previous group's wait:
-//      loading them while it ran gave wrong sums, the registers it still
-//      read being reused.
-//
-// W is formed on chip: the producer also loads the stage's slice of G
-// (f32, no swizzle); each W value becomes bf16(f32(b) * G[k, n]) (the TPU
-// kernels' rounding order: an f32 product, one bf16 rounding) in registers
-// (2) or in shared memory (0, 1: each 128-byte row n of the box, the
-// swizzle only permuting 16-byte granules within a row, then a proxy fence
-// and a barrier of the two warpgroups).  No W array reaches device memory
-// (the direct form reads W16 as given).
+// An output tile is 256 (m) x 128 (n for dA, m' for dL), computed
+// transposed: W is wgmma's A operand, from registers, and the 256-row L
+// (dA) or A16 (dL) box is B, read from shared memory, K-major.  Each
+// warpgroup loads its 64 rows of the stage's W box with ldmatrix
+// (transposed for dL, whose W box has n as rows), forms W there and runs
+// m64n256k16 over it.  W is formed on chip: the producer also loads the
+// stage's slice of G (f32, no swizzle), and each value becomes
+// bf16(f32(b) * G[k, n]) in registers (the TPU kernels' rounding order: an
+// f32 product, one bf16 rounding), so no W array reaches device memory (the
+// direct form takes W16 as loaded).  W then costs shared memory one TMA
+// write and one read; scaled in place in shared memory before wgmma read
+// it, it cost a read and a write more, and the scaled kernels ran 11-20%
+// slower on an H100 (PERF.md §6).  The fragments are loaded only
+// after the previous group's wait: loaded while it ran, into registers of
+// their own, they gave wrong sums, the registers it still read being
+// reused.
 //
 // tril_da: output [M, N], contraction over (k, m').  L_k [M, M] and W_k
-//   [N, M] are both m'-contiguous: K-major operands as they lie in memory
-//   (the transpose bits clear).  The run of the tile at m-tile m0 is, for
-//   each k, the 64-wide m'-stages up to its diagonal, K (m0 + BM) / 64 in
-//   all; the stages that straddle the diagonal get L's entries with m < m'
-//   overwritten with 0 in shared memory (a store, never a multiply: NaN * 0
-//   is NaN) before a barrier of the two warpgroups.  Tiles are walked
-//   longest run first, in a snake over the CTAs (CTA b takes tile b of the
-//   first wave, G-1-b of the second, ...).
-// tril_dl: output [K, M, M], contraction over all n.  A16 [M, N] is
-//   n-contiguous (K-major), W_k [N, M] m'-contiguous (MN-major, as #3's L).
-//   Every tile on or below the diagonal runs the same N / 64 stages; the
-//   tiles above it are written as exact zeros after them, and the diagonal
-//   tiles write 0 where m < m' in the epilogue, so dL comes out exactly
-//   lower-triangular with no `tril` pass afterwards.
+//   [N, M] are both m'-contiguous: K-major operands as they lie in memory.
+//   The run of the tile at m-tile m0 is, for each k, the 64-wide m'-stages
+//   up to its diagonal, K (m0 + 256) / 64 in all; the stages that straddle
+//   the diagonal get L's entries with m < m' overwritten with 0 in shared
+//   memory (a store, never a multiply: NaN * 0 is NaN), then a proxy fence
+//   and a barrier of the two warpgroups.  Tiles are walked longest run
+//   first, in a snake over the CTAs (CTA b takes tile b of the first wave,
+//   G-1-b of the second, ...).
+// tril_dl: output [K, M, M], contraction over all n.  Every tile on or
+//   below the diagonal runs the same N / 64 stages; the tiles above it are
+//   written as exact zeros after them, and the diagonal tiles write 0 where
+//   m < m' in the epilogue, so dL comes out exactly lower-triangular with
+//   no `tril` pass afterwards.
 //
 // Alignment rule: TMA needs 16-byte row strides, so the wrapper hands in
 // A16 and G with ldn = N rounded up to a multiple of 8, and L16 and B16 /
@@ -81,47 +75,17 @@ using namespace mgp;
 constexpr int STAGES = 4;
 constexpr int NCONS = 256;                 // two consumer warpgroups
 constexpr int NTHR = NCONS + 128;          // and the producer's warpgroup
-constexpr int STAGE_BYTES = 48 * 1024;     // the L / A box, then W's
-constexpr int GSLOT = 1024;                // a stage's G slice (<= 256 f32)
+constexpr int BM = 256;                    // m rows of a tile: the L / A box
+constexpr int BW = 128;                    // W rows of a tile: 64 a warpgroup
+constexpr int XBYTES = BM * 128;           // the L / A box (BM rows of 64)
+constexpr int STAGE_BYTES = XBYTES + BW * 128;   // then W's
+constexpr int GSLOT = BW * 4;              // a stage's G slice (<= BW f32)
 constexpr size_t SMEM_BYTES = STAGES * (STAGE_BYTES + GSLOT) + 1024 + 2 * STAGES * 8;
-
-// The output tile: BM rows (m) by BW columns (n for dA, m' for dL); warpgroup
-// w owns the SL slabs of 64 rows from 64 SL w, each a wgmma of width BW.
-template <int SL>
-struct Tile {
-  static constexpr int BM = 128 * SL;
-  static constexpr int BW = 256 / SL;
-  static constexpr int XBYTES = BM * 128;   // the L (dA) or A (dL) box: BM rows of 64
-  static constexpr int NACC = BW / 2;       // fp32 accumulators of a slab a thread
-  static_assert(XBYTES + BW * 128 == STAGE_BYTES, "a stage holds both operands");
-};
-
-// W = bf16(f32(B16) * g) in place over ROWS 128-byte rows of W boxes, row r
-// scaled by gs[r % GB] (its n).
-template <int ROWS, int GB>
-__device__ __forceinline__ void scale_rows(uint8_t* w, const float* gs, int tid) {
-  static_assert(ROWS * 8 % NCONS == 0, "granules split evenly");
-#pragma unroll
-  for (int c = 0; c < ROWS * 8 / NCONS; ++c) {
-    const int e = tid + c * NCONS;          // granule e % 8 of row e / 8
-    uint4* ptr = reinterpret_cast<uint4*>(w + e * 16);
-    const float g = gs[(e / 8) % GB];
-    uint4 v = *ptr;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      h[q] = __floats2bfloat162_rn(f.x * g, f.y * g);
-    }
-    *ptr = v;
-  }
-}
 
 // The register split: the producer's warpgroup (one thread of it issues
 // the TMA loads) gives registers back, the two consumer warpgroups take
 // them (128 accumulators a thread, plus a stage's fragments and addresses);
-// (232 - 168) x 256 = (168 - 40) x 128, 168 being the most a thread of the
-// 384 can have at launch.
+// (232 - 168) x 256 = (168 - 40) x 128.
 __device__ __forceinline__ void producer_regs() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
 }
@@ -129,61 +93,12 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
 }
 
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(NCONS) : "memory");
-}
-
-__device__ __forceinline__ void store2(float* dst, float a, float b, bool both, bool vec) {
-  if (both && vec) {
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-  } else {
-    dst[0] = a;
-    if (both) dst[1] = b;
-  }
-}
-
-// Writes the warpgroup's slabs of a BM x BW tile at (r0, c0) of out [rows,
-// cols] (row pitch cols): acc[i][4 c + 2 h + e] is row 64 (SL wg + i) + 16
-// wq + lane / 4 + 8 h, column 8 c + 2 (lane % 4) + e.  lower: 0 where row <
-// column.
-template <int SL>
-__device__ __forceinline__ void store_tile(float (&acc)[SL][Tile<SL>::NACC], float* out,
-                                           int rows, int cols, int r0, int c0, bool lower,
-                                           int wg, int lt) {
-  const int lane = lt % 32, wq = lt / 32;
-  const bool vec = (cols % 2) == 0;
-#pragma unroll
-  for (int i = 0; i < SL; ++i) {
-    const int rb = r0 + 64 * (SL * wg + i) + 16 * wq + lane / 4;
-#pragma unroll
-    for (int c = 0; c < Tile<SL>::BW / 8; ++c) {
-      const int col = c0 + 8 * c + 2 * (lane % 4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = rb + 8 * h;
-        if (row < rows && col < cols) {
-          float a = acc[i][4 * c + 2 * h], b = acc[i][4 * c + 2 * h + 1];
-          if (lower && row < col) a = 0.f;
-          if (lower && row < col + 1) b = 0.f;
-          store2(out + (size_t)row * cols + col, a, b, col + 1 < cols, vec);
-        }
-      }
-    }
-  }
-}
-
-template <int SL>
-__device__ __forceinline__ void zero_acc(float (&acc)[SL][Tile<SL>::NACC]) {
-#pragma unroll
-  for (int i = 0; i < SL; ++i)
-#pragma unroll
-    for (int j = 0; j < Tile<SL>::NACC; ++j) acc[i][j] = 0.f;
-}
-
-template <int SL>
-__device__ __forceinline__ void fence_acc(float (&acc)[SL][Tile<SL>::NACC]) {
-#pragma unroll
-  for (int i = 0; i < SL; ++i) fence_operands(acc[i]);
+// bf16(f32(v) * g) of a pair of bf16, scaled by (g0, g1).
+__device__ __forceinline__ uint32_t scale2(uint32_t v, float g0, float g1) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(f.x * g0, f.y * g1);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // The stage ring: full / empty barriers, the stage and its phase.
@@ -220,35 +135,48 @@ __device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
   return r;
 }
 
-// The consumers' side of a stage: wait for it to land ...
+// The producer's side of a stage: wait for it to be free, then expect its
+// bytes on its full barrier (the TMA loads follow).
+__device__ __forceinline__ uint64_t* stage_fill(Ring& ring, uint32_t bytes) {
+  mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
+  uint64_t* bar = &ring.full[ring.stage];
+  mbar_expect_tx(bar, bytes);
+  return bar;
+}
+
+// The consumers' side: wait for the stage to land ...
 __device__ __forceinline__ uint8_t* stage_wait(const Ring& ring) {
   mbar_wait(&ring.full[ring.stage], ring.phase);
   return ring.st();
 }
 
-// ... publish what they stored into it to wgmma ...
+// ... after zeroing L's upper entries in it, fence them to wgmma and sync
+// the two warpgroups ...
 __device__ __forceinline__ void stage_edited() {
   fence_proxy_async();
-  consumers_sync();
+  asm volatile("bar.sync 1, %0;" ::"n"(NCONS) : "memory");
 }
 
-// ... and, its wgmma group issued, keep the group in flight, wait for the
-// one before it and hand that stage back to the producer.
-template <int SL>
-__device__ __forceinline__ void stage_issued(Ring& ring, int& held,
-                                             float (&acc)[SL][Tile<SL>::NACC], int lt) {
-  wgmma_commit();
-  wgmma_wait<1>();
-  fence_acc<SL>(acc);
-  if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
-  held = ring.stage;
-  ring.next();
-}
-
-__device__ __forceinline__ void drain(Ring& ring, int& held, int lt) {
+// ... wait for the group in flight and hand its stage back (only then may
+// the fragments be loaded) ...
+__device__ __forceinline__ void stage_drain(Ring& ring, int& held, float (&acc)[128], int lt) {
   wgmma_wait<0>();
+  fence_operands(acc);
   if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
   held = -1;
+}
+
+// ... and issue the stage's group from the fragments `a` over the B box at
+// `bbase`, keeping it in flight.
+__device__ __forceinline__ void stage_issue(Ring& ring, int& held, float (&acc)[128],
+                                            uint32_t (&a)[4][4], uint32_t bbase) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BOX / 16; ++kk)
+    wgmma_m64n256_rs(acc, a[kk], desc_k_sw128(bbase + kk * 32));
+  wgmma_commit();
+  held = ring.stage;
+  ring.next();
 }
 
 // Tile `it` of CTA b of G: a snake, so a CTA given a long tile in one wave
@@ -257,40 +185,11 @@ __device__ __forceinline__ int snake(int it) {
   return it * gridDim.x + ((it & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-// dA tile t -> its first row: the m-tiles from the bottom (the longest
-// runs first), the n-tiles of one m-tile adjacent.
-template <int SL>
-__device__ __forceinline__ int da_m0(int t, int mtc, int ntc) {
-  return (mtc - 1 - t / ntc) * Tile<SL>::BM;
-}
-
-// --- The register-fed variant (tile 2): W is wgmma's A operand, loaded
-// from its TMA box with ldmatrix, scaled in registers and fed to wgmma
-// m64n256 from there; the L / A box is B (256 rows, K-major).  The output
-// tile is the same 256 (m) x 128 (n or m') as tile 0's, computed
-// transposed: warpgroup wg owns its W rows 64 wg .. + 63.  W then costs
-// shared memory only its TMA write and one read.
-
-// bf16(f32(v) * g) of a pair of bf16, scaled by (g0, g1).
-__device__ __forceinline__ uint32_t scale2(uint32_t v, float g0, float g1) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
-  const float2 f = __bfloat1622float2(h);
-  h = __floats2bfloat162_rn(f.x * g0, f.y * g1);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
 // Writes a warpgroup's transposed 64 x 256 slab: acc[4 c + 2 h + e] is the
 // output's column c0 + 64 wg + 16 wq + lane / 4 + 8 h and row r0 + 8 c + 2
 // (lane % 4) + e of out [rows, cols]; lower: 0 where row < column.
-__device__ __forceinline__ void store_tile_t(float (&acc)[128], float* out, int rows, int cols,
-                                             int r0, int c0, bool lower, int wg, int lt) {
+__device__ __forceinline__ void store_tile(float (&acc)[128], float* out, int rows, int cols,
+                                           int r0, int c0, bool lower, int wg, int lt) {
   const int lane = lt % 32, wq = lt / 32;
   const int cb = c0 + 64 * wg + 16 * wq + lane / 4;
 #pragma unroll
@@ -307,142 +206,35 @@ __device__ __forceinline__ void store_tile_t(float (&acc)[128], float* out, int 
     }
 }
 
-// The register-fed stage, in two steps: wait for the group in flight and
-// hand its stage back (after which the fragments may be loaded) ...
-__device__ __forceinline__ void rs_wait(Ring& ring, int& held, float (&acc)[128], int lt) {
-  wgmma_wait<0>();
-  fence_operands(acc);
-  if (held >= 0 && lt == 0) mbar_arrive(&ring.empty[held]);
-  held = -1;
-}
-
-// ... then issue this stage's group from the fragments `a` over the B box
-// at `bbase`.
-template <int TB>
-__device__ __forceinline__ void rs_issue(Ring& ring, int& held, float (&acc)[128],
-                                         uint32_t (&a)[4][4], uint32_t bbase) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BOX / 16; ++kk)
-    wgmma_m64n256_rs<TB>(acc, a[kk], desc_k_sw128(bbase + kk * 32));
-  wgmma_commit();
-  fence_frags(a);
-  held = ring.stage;
-  ring.next();
+// dA tile t -> its first row: the m-tiles from the bottom (the longest
+// runs first), the n-tiles of one m-tile adjacent.
+__device__ __forceinline__ int da_m0(int t, int mtc, int ntc) {
+  return (mtc - 1 - t / ntc) * BM;
 }
 
 template <bool kScaled>
-__device__ __forceinline__ void da_consumer_rs(Ring& ring, float* dA, int M, int N, int K,
-                                               int mtc, int ntc, int tiles, int tid) {
-  using T = Tile<2>;
-  const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
-  // This lane's ldmatrix row of the W box (matrix lane / 8: rows + 8 for
-  // odd, columns + 8 for the upper two) and the n of its fragment's a0.
-  const int wrow = 64 * wg + 16 * wq + 8 * ((lane / 8) & 1) + lane % 8;
-  const int frow = 64 * wg + 16 * wq + lane / 4;
-  float acc[128];
-  uint32_t a[4][4];
-  int held = -1;
-  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
-    const int m0 = da_m0<2>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
-    const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;
-#pragma unroll
-    for (int j = 0; j < 128; ++j) acc[j] = 0.f;
-    for (int k = 0; k < K; ++k)
-      for (int q = 0; q < per_k; ++q) {
-        const int p = q * BOX;
-        uint8_t* st = stage_wait(ring);
-        if (p + BOX - 1 > m0) {             // L's box straddles the diagonal
-          zero_upper<T::BM, 1, NCONS>(st, m0 - p, tid);
-          stage_edited();
-        }
-        const uint32_t base = smem_u32(st);
-        const float glo = kScaled ? ring.gs()[frow] : 1.f;
-        const float ghi = kScaled ? ring.gs()[frow + 8] : 1.f;
-        rs_wait(ring, held, acc, lt);
-#pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk) {
-          const int g = 2 * kk + lane / 16;
-          ldsm_x4(base + T::XBYTES + wrow * 128 + ((g ^ (wrow & 7)) << 4), a[kk]);
-          if (kScaled) {
-            a[kk][0] = scale2(a[kk][0], glo, glo);
-            a[kk][1] = scale2(a[kk][1], ghi, ghi);
-            a[kk][2] = scale2(a[kk][2], glo, glo);
-            a[kk][3] = scale2(a[kk][3], ghi, ghi);
-          }
-        }
-        rs_issue<0>(ring, held, acc, a, base);
-      }
-    drain(ring, held, lt);
-    fence_operands(acc);
-    store_tile_t(acc, dA, M, N, m0, n0, false, wg, lt);
-  }
-}
-
-template <bool kScaled, int SL>
-__device__ __forceinline__ void da_consumer_ss(Ring& ring, float* dA, int M, int N, int K,
-                                               int mtc, int ntc, int tiles, int tid) {
-  using T = Tile<SL>;
-  const int wg = tid / 128, lt = tid % 128;
-  float acc[SL][T::NACC];
-  int held = -1;
-  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
-    const int m0 = da_m0<SL>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
-    const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;   // m'-stages to the diagonal
-    zero_acc<SL>(acc);
-    for (int k = 0; k < K; ++k)
-      for (int q = 0; q < per_k; ++q) {
-        const int p = q * BOX;
-        const bool diag = p + BOX - 1 > m0;   // L's box straddles the diagonal
-        uint8_t* st = stage_wait(ring);
-        if (kScaled) scale_rows<T::BW, T::BW>(st + T::XBYTES, ring.gs(), tid);
-        if (diag) zero_upper<T::BM, 1, NCONS>(st, m0 - p, tid);
-        if (kScaled || diag) stage_edited();
-        const uint32_t base = smem_u32(st);
-        fence_acc<SL>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk)
-#pragma unroll
-          for (int i = 0; i < SL; ++i)
-            wgmma_m64<0, 0, T::BW>(acc[i],
-                                   desc_k_sw128(base + 64 * (SL * wg + i) * 128 + kk * 32),
-                                   desc_k_sw128(base + T::XBYTES + kk * 32));
-        stage_issued<SL>(ring, held, acc, lt);
-      }
-    drain(ring, held, lt);
-    store_tile<SL>(acc, dA, M, N, m0, n0, false, wg, lt);
-  }
-}
-
-template <bool kScaled, int MODE>
 __global__ void __launch_bounds__(NTHR, 1)
 tril_da_kernel(const __grid_constant__ CUtensorMap mapL,
                const __grid_constant__ CUtensorMap mapW,
                const __grid_constant__ CUtensorMap mapG, float* __restrict__ dA, int M,
                int N, int K) {
-  constexpr int SL = MODE == 1 ? 1 : 2;
-  using T = Tile<SL>;
   extern __shared__ uint8_t smem_raw[];
   Ring ring = ring_init(smem_raw);
   const int tid = threadIdx.x;
-  const int mtc = (M + T::BM - 1) / T::BM, ntc = (N + T::BW - 1) / T::BW;
+  const int mtc = (M + BM - 1) / BM, ntc = (N + BW - 1) / BW;
   const int tiles = mtc * ntc;
 
   if (tid >= NCONS) {              // the producer: one thread issues TMA
     producer_regs();
     if (tid == NCONS) {
-      constexpr uint32_t bytes = STAGE_BYTES + (kScaled ? T::BW * 4 : 0);
       for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
-        const int m0 = da_m0<SL>(t, mtc, ntc), n0 = (t % ntc) * T::BW;
-        const int per_k = (min(m0 + T::BM, M) + BOX - 1) / BOX;
+        const int m0 = da_m0(t, mtc, ntc), n0 = (t % ntc) * BW;
+        const int per_k = (min(m0 + BM, M) + BOX - 1) / BOX;
         for (int k = 0; k < K; ++k)
           for (int q = 0; q < per_k; ++q) {
-            mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
-            uint64_t* bar = &ring.full[ring.stage];
-            mbar_expect_tx(bar, bytes);
+            uint64_t* bar = stage_fill(ring, STAGE_BYTES + (kScaled ? BW * 4 : 0));
             tma_load_3d(ring.st(), &mapL, bar, q * BOX, m0, k);
-            tma_load_3d(ring.st() + T::XBYTES, &mapW, bar, q * BOX, n0, k);
+            tma_load_3d(ring.st() + XBYTES, &mapW, bar, q * BOX, n0, k);
             if (kScaled) tma_load_2d(ring.gs(), &mapG, bar, n0, k);
             ring.next();
           }
@@ -450,20 +242,56 @@ tril_da_kernel(const __grid_constant__ CUtensorMap mapL,
     }
   } else {
     consumer_regs();
-    if constexpr (MODE == 2)
-      da_consumer_rs<kScaled>(ring, dA, M, N, K, mtc, ntc, tiles, tid);
-    else
-      da_consumer_ss<kScaled, SL>(ring, dA, M, N, K, mtc, ntc, tiles, tid);
+    const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
+    // This lane's ldmatrix row of the W box (matrix lane / 8: rows + 8 for
+    // odd, columns + 8 for the upper two) and the n of its fragment's a0
+    // and a2 (a1 and a3: + 8).
+    const int wrow = 64 * wg + 16 * wq + 8 * ((lane / 8) & 1) + lane % 8;
+    const int frow = 64 * wg + 16 * wq + lane / 4;
+    float acc[128];
+    uint32_t a[4][4];
+    int held = -1;
+    for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+      const int m0 = da_m0(t, mtc, ntc), n0 = (t % ntc) * BW;
+      const int per_k = (min(m0 + BM, M) + BOX - 1) / BOX;   // m'-stages to the diagonal
+#pragma unroll
+      for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+      for (int k = 0; k < K; ++k)
+        for (int q = 0; q < per_k; ++q) {
+          const int p = q * BOX;
+          uint8_t* st = stage_wait(ring);
+          if (p + BOX - 1 > m0) {           // L's box straddles the diagonal
+            zero_upper<BM, 1, NCONS>(st, m0 - p, tid);
+            stage_edited();
+          }
+          const uint32_t base = smem_u32(st);
+          const float glo = kScaled ? ring.gs()[frow] : 1.f;
+          const float ghi = kScaled ? ring.gs()[frow + 8] : 1.f;
+          stage_drain(ring, held, acc, lt);
+#pragma unroll
+          for (int kk = 0; kk < BOX / 16; ++kk) {
+            const int g = 2 * kk + lane / 16;
+            ldsm_x4(base + XBYTES + wrow * 128 + ((g ^ (wrow & 7)) << 4), a[kk]);
+            if (kScaled) {
+              a[kk][0] = scale2(a[kk][0], glo, glo);
+              a[kk][1] = scale2(a[kk][1], ghi, ghi);
+              a[kk][2] = scale2(a[kk][2], glo, glo);
+              a[kk][3] = scale2(a[kk][3], ghi, ghi);
+            }
+          }
+          stage_issue(ring, held, acc, a, base);
+        }
+      stage_drain(ring, held, acc, lt);
+      store_tile(acc, dA, M, N, m0, n0, false, wg, lt);
+    }
   }
 }
 
 // dL tile t -> (k, m0, p0): first the tiles on or below the diagonal of
 // every k, then those above it; returns whether t is below.
-template <int SL>
 __device__ __forceinline__ bool dl_coords(int t, int M, int K, int lower, int& k, int& m0,
                                           int& p0) {
-  using T = Tile<SL>;
-  const int mtc = (M + T::BM - 1) / T::BM, ntc = (M + T::BW - 1) / T::BW;
+  const int mtc = (M + BM - 1) / BM, ntc = (M + BW - 1) / BW;
   const bool low = t < K * lower;
   const int per_k = low ? lower : mtc * ntc - lower;
   if (!low) t -= K * lower;
@@ -471,11 +299,11 @@ __device__ __forceinline__ bool dl_coords(int t, int M, int K, int lower, int& k
   int o = t - k * per_k;
   m0 = p0 = 0;
   for (int i = 0; i < mtc; ++i) {
-    const int jmax = min(ntc - 1, (min(M, (i + 1) * T::BM) - 1) / T::BW);
+    const int jmax = min(ntc - 1, (min(M, (i + 1) * BM) - 1) / BW);
     const int count = low ? jmax + 1 : ntc - 1 - jmax;
     if (o < count) {
-      m0 = i * T::BM;
-      p0 = (low ? o : jmax + 1 + o) * T::BW;
+      m0 = i * BM;
+      p0 = (low ? o : jmax + 1 + o) * BW;
       break;
     }
     o -= count;
@@ -484,119 +312,29 @@ __device__ __forceinline__ bool dl_coords(int t, int M, int K, int lower, int& k
 }
 
 template <bool kScaled>
-__device__ __forceinline__ void dl_consumer_rs(Ring& ring, float* dL, int M, int stages,
-                                               int K, int lower, int tiles, int tid) {
-  using T = Tile<2>;
-  const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
-  // W's box wg holds this warpgroup's 64 m' as columns and n as rows, so
-  // its fragments come transposed: this lane gives row n = 16 kk + 8 (lane
-  // / 16) + lane % 8 and granule 2 wq + (lane / 8) % 2 of the box; its a0
-  // holds n = 16 kk + 2 (lane % 4) + {0, 1}, a2 those + 8 (a1, a3 alike).
-  const int nrow = 8 * (lane / 16) + lane % 8;
-  const int gran = 2 * wq + (lane / 8) % 2;
-  const int fn = 2 * (lane % 4);
-  float acc[128];
-  uint32_t a[4][4];
-  int held = -1;
-  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
-    int k, m0, p0;
-    const bool low = dl_coords<2>(t, M, K, lower, k, m0, p0);
-#pragma unroll
-    for (int j = 0; j < 128; ++j) acc[j] = 0.f;
-    if (low) {
-      for (int s = 0; s < stages; ++s) {
-        uint8_t* st = stage_wait(ring);
-        const uint32_t base = smem_u32(st);
-        const float* gs = ring.gs();
-        rs_wait(ring, held, acc, lt);
-#pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk) {
-          const int n = 16 * kk + nrow;
-          ldsm_x4_trans(base + T::XBYTES + wg * CHUNK + n * 128 + ((gran ^ (n & 7)) << 4),
-                        a[kk]);
-          if (kScaled) {
-            const float2 g0 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn);
-            const float2 g8 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn + 8);
-            a[kk][0] = scale2(a[kk][0], g0.x, g0.y);
-            a[kk][1] = scale2(a[kk][1], g0.x, g0.y);
-            a[kk][2] = scale2(a[kk][2], g8.x, g8.y);
-            a[kk][3] = scale2(a[kk][3], g8.x, g8.y);
-          }
-        }
-        rs_issue<0>(ring, held, acc, a, base);
-      }
-      drain(ring, held, lt);
-      fence_operands(acc);
-    }
-    store_tile_t(acc, dL + (size_t)k * M * M, M, M, m0, p0, true, wg, lt);
-  }
-}
-
-template <bool kScaled, int SL>
-__device__ __forceinline__ void dl_consumer_ss(Ring& ring, float* dL, int M, int stages,
-                                               int K, int lower, int tiles, int tid) {
-  using T = Tile<SL>;
-  const int wg = tid / 128, lt = tid % 128;
-  float acc[SL][T::NACC];
-  int held = -1;
-  for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
-    int k, m0, p0;
-    const bool low = dl_coords<SL>(t, M, K, lower, k, m0, p0);
-    zero_acc<SL>(acc);               // a tile above the diagonal stores these
-    if (low) {
-      for (int s = 0; s < stages; ++s) {
-        uint8_t* st = stage_wait(ring);
-        if (kScaled) {
-          scale_rows<T::BW, BOX>(st + T::XBYTES, ring.gs(), tid);
-          stage_edited();
-        }
-        const uint32_t base = smem_u32(st);
-        fence_acc<SL>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk)
-#pragma unroll
-          for (int i = 0; i < SL; ++i)
-            wgmma_m64<0, 1, T::BW>(acc[i],
-                                   desc_k_sw128(base + 64 * (SL * wg + i) * 128 + kk * 32),
-                                   desc_mn_sw128(base + T::XBYTES + kk * 2048, CHUNK, 1024));
-        stage_issued<SL>(ring, held, acc, lt);
-      }
-      drain(ring, held, lt);
-    }
-    store_tile<SL>(acc, dL + (size_t)k * M * M, M, M, m0, p0, true, wg, lt);
-  }
-}
-
-template <bool kScaled, int MODE>
 __global__ void __launch_bounds__(NTHR, 1)
 tril_dl_kernel(const __grid_constant__ CUtensorMap mapA,
                const __grid_constant__ CUtensorMap mapW,
                const __grid_constant__ CUtensorMap mapG, float* __restrict__ dL, int M,
                int N, int K, int lower) {
-  constexpr int SL = MODE == 1 ? 1 : 2;
-  using T = Tile<SL>;
   extern __shared__ uint8_t smem_raw[];
   Ring ring = ring_init(smem_raw);
   const int tid = threadIdx.x;
-  const int tiles = K * ((M + T::BM - 1) / T::BM) * ((M + T::BW - 1) / T::BW);
+  const int tiles = K * ((M + BM - 1) / BM) * ((M + BW - 1) / BW);
   const int stages = (N + BOX - 1) / BOX;
 
   if (tid >= NCONS) {              // the producer: one thread issues TMA
     producer_regs();
     if (tid == NCONS) {
-      constexpr uint32_t bytes = STAGE_BYTES + (kScaled ? BOX * 4 : 0);
       for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
         int k, m0, p0;
-        if (!dl_coords<SL>(t, M, K, lower, k, m0, p0)) continue;
+        if (!dl_coords(t, M, K, lower, k, m0, p0)) continue;
         for (int s = 0; s < stages; ++s) {
-          mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
-          uint64_t* bar = &ring.full[ring.stage];
-          mbar_expect_tx(bar, bytes);
+          uint64_t* bar = stage_fill(ring, STAGE_BYTES + (kScaled ? BOX * 4 : 0));
           tma_load_2d(ring.st(), &mapA, bar, s * BOX, m0);
 #pragma unroll
-          for (int h = 0; h < T::BW / BOX; ++h)
-            tma_load_3d(ring.st() + T::XBYTES + h * CHUNK, &mapW, bar, p0 + h * BOX, s * BOX, k);
+          for (int h = 0; h < BW / BOX; ++h)
+            tma_load_3d(ring.st() + XBYTES + h * CHUNK, &mapW, bar, p0 + h * BOX, s * BOX, k);
           if (kScaled) tma_load_2d(ring.gs(), &mapG, bar, s * BOX, k);
           ring.next();
         }
@@ -604,13 +342,60 @@ tril_dl_kernel(const __grid_constant__ CUtensorMap mapA,
     }
   } else {
     consumer_regs();
-    if constexpr (MODE == 2)
-      dl_consumer_rs<kScaled>(ring, dL, M, stages, K, lower, tiles, tid);
-    else
-      dl_consumer_ss<kScaled, SL>(ring, dL, M, stages, K, lower, tiles, tid);
+    const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
+    // W's box wg holds this warpgroup's 64 m' as columns and n as rows, so
+    // its fragments come transposed: this lane gives row n = 16 kk + 8
+    // (lane / 16) + lane % 8 and granule 2 wq + (lane / 8) % 2 of the box;
+    // its a0 holds n = 16 kk + 2 (lane % 4) + {0, 1}, a2 those + 8 (a1, a3
+    // alike).
+    const int nrow = 8 * (lane / 16) + lane % 8;
+    const int gran = 2 * wq + (lane / 8) % 2;
+    const int fn = 2 * (lane % 4);
+    float acc[128];
+    uint32_t a[4][4];
+    int held = -1;
+    for (int it = 0, t; (t = snake(it)) < tiles; ++it) {
+      int k, m0, p0;
+      const bool low = dl_coords(t, M, K, lower, k, m0, p0);
+#pragma unroll
+      for (int j = 0; j < 128; ++j) acc[j] = 0.f;   // a tile above the diagonal stores these
+      if (low) {
+        for (int s = 0; s < stages; ++s) {
+          const uint32_t base = smem_u32(stage_wait(ring));
+          const float* gs = ring.gs();
+          stage_drain(ring, held, acc, lt);
+#pragma unroll
+          for (int kk = 0; kk < BOX / 16; ++kk) {
+            const int n = 16 * kk + nrow;
+            ldsm_x4_trans(base + XBYTES + wg * CHUNK + n * 128 + ((gran ^ (n & 7)) << 4),
+                          a[kk]);
+            if (kScaled) {
+              const float2 g0 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn);
+              const float2 g8 = *reinterpret_cast<const float2*>(gs + 16 * kk + fn + 8);
+              a[kk][0] = scale2(a[kk][0], g0.x, g0.y);
+              a[kk][1] = scale2(a[kk][1], g0.x, g0.y);
+              a[kk][2] = scale2(a[kk][2], g8.x, g8.y);
+              a[kk][3] = scale2(a[kk][3], g8.x, g8.y);
+            }
+          }
+          stage_issue(ring, held, acc, a, base);
+        }
+        stage_drain(ring, held, acc, lt);
+      }
+      store_tile(acc, dL + (size_t)k * M * M, M, M, m0, p0, true, wg, lt);
+    }
   }
 }
 
+// W [K, N, ldm] bf16 as a 3-D map read in boxes of `rows` n-rows of 64 m'.
+bool encode_w(CUtensorMap* map, const void* W, int N, int K, int ldm, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)ldm, (cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[2] = {(cuuint64_t)ldm * 2, (cuuint64_t)N * ldm * 2};
+  return encode_bf16(map, 3, W, dims, strides, rows);
+}
+
+// G [K, ldn] f32 read in slices of `box` (no swizzle); the direct forms,
+// which read no G, get W's map in its place.
 bool encode_g(CUtensorMap* map, const void* G, int K, int ldn, int box) {
   const cuuint64_t dims[2] = {(cuuint64_t)ldn, (cuuint64_t)K};
   const cuuint64_t strides[1] = {(cuuint64_t)ldn * 4};
@@ -633,109 +418,75 @@ int launch(Kernel kernel, long long tiles, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// W [K, N, ldm] bf16 as a 3-D map read in boxes of `rows` n-rows of 64 m'.
-bool encode_w(CUtensorMap* map, const void* W, int N, int K, int ldm, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)ldm, (cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t strides[2] = {(cuuint64_t)ldm * 2, (cuuint64_t)N * ldm * 2};
-  return encode_bf16(map, 3, W, dims, strides, rows);
+bool bad_args(int M, int N, int ldn, int ldm) {
+  return ldn % 8 != 0 || ldm % 8 != 0 || ldn < N || ldm < M;
 }
 
-template <bool kScaled, int MODE>
+template <bool kScaled>
 int launch_da(const void* L, const void* W, const void* G, void* dA, int M, int N, int K,
               int ldm, int ldn, void* stream) {
-  using T = Tile<MODE == 1 ? 1 : 2>;
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  if (bad_args(M, N, ldn, ldm)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mapL, mapW, mapG;
   const cuuint64_t dimsL[3] = {(cuuint64_t)ldm, (cuuint64_t)ldm, (cuuint64_t)K};
   const cuuint64_t strideL[2] = {(cuuint64_t)ldm * 2, (cuuint64_t)ldm * ldm * 2};
-  if (!encode_bf16(&mapL, 3, L, dimsL, strideL, T::BM) ||
-      !encode_w(&mapW, W, N, K, ldm, T::BW) ||
-      (kScaled ? !encode_g(&mapG, G, K, ldn, T::BW) : !encode_w(&mapG, W, N, K, ldm, T::BW)))
+  if (!encode_bf16(&mapL, 3, L, dimsL, strideL, BM) || !encode_w(&mapW, W, N, K, ldm, BW) ||
+      (kScaled ? !encode_g(&mapG, G, K, ldn, BW) : !encode_w(&mapG, W, N, K, ldm, BW)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + T::BW - 1) / T::BW);
-  return launch(tril_da_kernel<kScaled, MODE>, tiles, stream, mapL, mapW, mapG,
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BW - 1) / BW);
+  return launch(tril_da_kernel<kScaled>, tiles, stream, mapL, mapW, mapG,
                 static_cast<float*>(dA), M, N, K);
 }
 
-template <bool kScaled, int MODE>
+template <bool kScaled>
 int launch_dl(const void* A, const void* W, const void* G, void* dL, int M, int N, int K,
               int ldn, int ldm, void* stream) {
-  using T = Tile<MODE == 1 ? 1 : 2>;
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  if (bad_args(M, N, ldn, ldm)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mapA, mapW, mapG;
   const cuuint64_t dimsA[2] = {(cuuint64_t)ldn, (cuuint64_t)M};
   const cuuint64_t strideA[1] = {(cuuint64_t)ldn * 2};
-  if (!encode_bf16(&mapA, 2, A, dimsA, strideA, T::BM) ||
-      !encode_w(&mapW, W, N, K, ldm, BOX) ||
+  if (!encode_bf16(&mapA, 2, A, dimsA, strideA, BM) || !encode_w(&mapW, W, N, K, ldm, BOX) ||
       (kScaled ? !encode_g(&mapG, G, K, ldn, BOX) : !encode_w(&mapG, W, N, K, ldm, BOX)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int mtc = (M + T::BM - 1) / T::BM, ntc = (M + T::BW - 1) / T::BW;
+  const int mtc = (M + BM - 1) / BM, ntc = (M + BW - 1) / BW;
   int lower = 0;   // tiles on or below the diagonal of one k
   for (int i = 0; i < mtc; ++i) {
-    const int jmax = (((i + 1) * T::BM < M ? (i + 1) * T::BM : M) - 1) / T::BW;
+    const int jmax = (((i + 1) * BM < M ? (i + 1) * BM : M) - 1) / BW;
     lower += (jmax < ntc - 1 ? jmax : ntc - 1) + 1;
   }
-  return launch(tril_dl_kernel<kScaled, MODE>, (long long)K * mtc * ntc, stream, mapA, mapW,
-                mapG, static_cast<float*>(dL), M, N, K, lower);
-}
-
-bool bad_args(int M, int N, int ldn, int ldm, int tile) {
-  return ldn % 8 != 0 || ldm % 8 != 0 || ldn < N || ldm < M || tile < 0 || tile > 2;
-}
-
-template <bool kScaled>
-int dispatch_dl(const void* A, const void* W, const void* G, void* dL, int M, int N, int K,
-                int ldn, int ldm, int tile, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
-  if (bad_args(M, N, ldn, ldm, tile)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tile) {
-    case 0: return launch_dl<kScaled, 0>(A, W, G, dL, M, N, K, ldn, ldm, stream);
-    case 1: return launch_dl<kScaled, 1>(A, W, G, dL, M, N, K, ldn, ldm, stream);
-    default: return launch_dl<kScaled, 2>(A, W, G, dL, M, N, K, ldn, ldm, stream);
-  }
-}
-
-template <bool kScaled>
-int dispatch_da(const void* L, const void* W, const void* G, void* dA, int M, int N, int K,
-                int ldm, int ldn, int tile, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
-  if (bad_args(M, N, ldn, ldm, tile)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tile) {
-    case 0: return launch_da<kScaled, 0>(L, W, G, dA, M, N, K, ldm, ldn, stream);
-    case 1: return launch_da<kScaled, 1>(L, W, G, dA, M, N, K, ldm, ldn, stream);
-    default: return launch_da<kScaled, 2>(L, W, G, dA, M, N, K, ldm, ldn, stream);
-  }
+  return launch(tril_dl_kernel<kScaled>, (long long)K * mtc * ntc, stream, mapA, mapW, mapG,
+                static_cast<float*>(dL), M, N, K, lower);
 }
 
 }  // namespace
 
-// `tile` picks the output tile: 0 for 256 x 128, 1 for 128 x 256, both with
-// W read by wgmma from shared memory, 2 for 256 x 128 with W fed to wgmma
-// from registers.  ldn and
-// ldm are N and M rounded up to multiples of 8 (the arrays' row strides).
+// ldn and ldm are N and M rounded up to multiples of 8 (the row strides).
 
 // A16 [M, ldn] bf16 (columns past N zero), B16 [K, N, ldm] bf16 (columns
 // past M zero), G [K, ldn] f32 -> dL [K, M, M] f32, exactly lower-triangular.
 extern "C" int mgp_tril_dl(const void* A, const void* B, const void* G, void* dL, int M,
-                           int N, int K, int ldn, int ldm, int tile, void* stream) {
-  return dispatch_dl<true>(A, B, G, dL, M, N, K, ldn, ldm, tile, stream);
+                           int N, int K, int ldn, int ldm, void* stream) {
+  return launch_dl<true>(A, B, G, dL, M, N, K, ldn, ldm, stream);
 }
 
 // L16 [K, ldm, ldm] bf16 (upper triangle ignored; rows and columns past M
 // zero), B16 [K, N, ldm] bf16, G [K, ldn] f32 -> dA [M, N] f32.
 extern "C" int mgp_tril_da(const void* L, const void* B, const void* G, void* dA, int M,
-                           int N, int K, int ldm, int ldn, int tile, void* stream) {
-  return dispatch_da<true>(L, B, G, dA, M, N, K, ldm, ldn, tile, stream);
+                           int N, int K, int ldm, int ldn, void* stream) {
+  return launch_da<true>(L, B, G, dA, M, N, K, ldm, ldn, stream);
 }
 
 // A16 [M, ldn] bf16, W16 [K, N, ldm] bf16 -> dL [K, M, M] f32, exactly
 // lower-triangular.
 extern "C" int mgp_tril_dl_w(const void* A, const void* W, void* dL, int M, int N, int K,
-                             int ldn, int ldm, int tile, void* stream) {
-  return dispatch_dl<false>(A, W, nullptr, dL, M, N, K, ldn, ldm, tile, stream);
+                             int ldn, int ldm, void* stream) {
+  return launch_dl<false>(A, W, nullptr, dL, M, N, K, ldn, ldm, stream);
 }
 
 // L16 [K, ldm, ldm] bf16 (upper triangle ignored), W16 [K, N, ldm] bf16 ->
 // dA [M, N] f32.
 extern "C" int mgp_tril_da_w(const void* L, const void* W, void* dA, int M, int N, int K,
-                             int ldm, int tile, void* stream) {
-  return dispatch_da<false>(L, W, nullptr, dA, M, N, K, ldm, (N + 7) / 8 * 8, tile, stream);
+                             int ldm, void* stream) {
+  return launch_da<false>(L, W, nullptr, dA, M, N, K, ldm, (N + 7) / 8 * 8, stream);
 }

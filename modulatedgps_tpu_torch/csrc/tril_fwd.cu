@@ -168,7 +168,7 @@ tril_fwd_kernel(const __grid_constant__ CUtensorMap mapA,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)   // 16 m-rows = 2 atoms of 8 rows
-        wgmma_m64n256<1, 1>(acc, desc_mn_sw128(a_base + kk * 2048, CHUNK, 1024),
+        wgmma_m64n256(acc, desc_mn_sw128(a_base + kk * 2048, CHUNK, 1024),
                    desc_mn_sw128(l_base + kk * 2048, CHUNK, 1024));
       wgmma_commit();
       // Keep this step's group in flight: wait for the one before it and

@@ -19,10 +19,9 @@ strides: the wrappers pad A16 (and G) to a multiple of 8 columns and L16
 to a multiple of 8 rows and columns, and B16 / W16 to a multiple of 8
 columns, with zeros, where N or M is not one (a shape rule of the kernels,
 which the main path's shapes already meet).  The square-sum's backward
-kernels form W = bf16(B16 * G) in shared memory after each tile lands
-(G = 2 * the cotangent of the square-sum), so no W array reaches device
-memory; atl_matmul's read W16 = bf16(dB).  ``BWD_TILE`` picks each
-backward kernel's arrangement of its output tile and of W.
+kernels form W = bf16(B16 * G) on chip after each tile lands (G = 2 * the
+cotangent of the square-sum), in the registers wgmma reads it from, so no
+W array reaches device memory; atl_matmul's read W16 = bf16(dB).
 
 As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and ``atl_matmul``,
 and the square-sum over m' runs outside the kernel: B16 stays the forward
@@ -116,12 +115,6 @@ def _check_fwd_shapes(what, A16, L16):
     return _check_device(what, A16)
 
 
-# The backward kernels' arrangement, by wrapper (csrc/tril_bwd.cu): 0 for
-# 256 x 128 output tiles and 1 for 128 x 256, W read by wgmma from shared
-# memory; 2 for 256 x 128 with W fed to wgmma from registers.
-BWD_TILE = {"tril_sq_dl": 2, "tril_sq_da": 2, "tril_dl": 2, "tril_da": 2}
-
-
 def _pad8(t, dims):
     """t with its last ``dims`` dimensions padded with zeros to multiples of
     8; t itself where they already are."""
@@ -202,8 +195,7 @@ def _dl(what, entry, A16, B16, G=None):
     args = () if G is None else (G.data_ptr(),)
     code = getattr(_native.library(), entry)(
         A16.data_ptr(), B16.data_ptr(), *args, dL.data_ptr(), M, N, K,
-        A16.shape[1], B16.shape[2], BWD_TILE[what],
-        _native.stream_ptr(A16.device))
+        A16.shape[1], B16.shape[2], _native.stream_ptr(A16.device))
     _native.check(code, what)
     return dL
 
@@ -218,7 +210,7 @@ def _da(what, entry, L16, B16, G=None):
     lds = (L16.shape[2],) if G is None else (L16.shape[2], G.shape[1])
     code = getattr(_native.library(), entry)(
         L16.data_ptr(), B16.data_ptr(), *args, dA.data_ptr(), M, N, K, *lds,
-        BWD_TILE[what], _native.stream_ptr(L16.device))
+        _native.stream_ptr(L16.device))
     _native.check(code, what)
     return dA
 

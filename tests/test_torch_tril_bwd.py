@@ -8,8 +8,7 @@ multiple of 8, L16 [K, M, M] zero rows and columns, and B16 / W16 [K, N, M]
 zero columns, each only where N or M is not a multiple of 8.  These tests
 check that the padding leaves each plain product unchanged (exactly: the
 padded entries are zeros and the kernels store only the [M, N] / [K, M, M]
-corner) and that each entry point gets the padded strides and the
-arrangement of ``tril_kernel.BWD_TILE``.
+corner) and that each entry point gets the padded strides.
 """
 import unittest.mock as mock
 
@@ -120,9 +119,9 @@ CASES = {   # wrapper -> (entry point, operand, takes G, product)
 def test_bwd_launcher_passes_the_padded_strides(M, N, name):
     """The entry point gets the padded operands' pointers, (M, N, K), the
     padded row strides (ldn = N and ldm = M rounded up to multiples of 8:
-    A16's and G's, then B16's for dL; L16's and B16's, then G's for dA),
-    BWD_TILE's tile and the stream; the output is allocated unpadded and
-    the launch counted."""
+    A16's and G's, then B16's for dL; L16's and B16's, then G's for dA)
+    and the stream; the output is allocated unpadded and the launch
+    counted."""
     entry, operand, takes_g, product = CASES[name]
     A16, L16, B16, G = _operands(M, N)
     X16 = A16 if operand == "A16" else L16
@@ -143,12 +142,10 @@ def test_bwd_launcher_passes_the_padded_strides(M, N, name):
 
     fn = getattr(tril_kernel, name)
     before = fn.launches
-    tile = (tril_kernel.BWD_TILE[name] + 1) % 3
     with mock.patch.object(_native, "library", Lib), \
             mock.patch.object(_native, "stream_ptr", lambda device: 77), \
             mock.patch.object(tril_kernel.torch, "empty", cpu_empty), \
-            mock.patch.object(tril_kernel.torch.nn.functional, "pad", card_pad), \
-            mock.patch.dict(tril_kernel.BWD_TILE, {name: tile}):
+            mock.patch.object(tril_kernel.torch.nn.functional, "pad", card_pad):
         ins = [_OnTheCard(X16), _OnTheCard(B16)] + ([_OnTheCard(G)]
                                                      if takes_g else [])
         out = fn(*ins)
@@ -174,17 +171,16 @@ def test_bwd_launcher_passes_the_padded_strides(M, N, name):
     if takes_g:
         G_in = by_ptr[next(ptrs)]
         assert G_in.shape == (K, ldn) and (G_in is ins[2]) == (ldn == N)
-    assert args[n_ptrs:] == (M, N, K, *lds, tile, 77)
+    assert args[n_ptrs:] == (M, N, K, *lds, 77)
     assert fn.launches == before + 1
     fn.launches = before
-    assert tril_kernel.BWD_TILE[name] != tile
 
 
 def test_bwd_launcher_signatures_match_the_loader():
     """The loader's ctypes argument lists have one entry per argument the
-    launchers pass: the pointers, (M, N, K), the strides, tile, stream."""
+    launchers pass: the pointers, (M, N, K), the strides, the stream."""
     sig = _native._SIGNATURES
-    assert len(sig["mgp_tril_dl"]) == 4 + 3 + 2 + 2
-    assert len(sig["mgp_tril_da"]) == 4 + 3 + 2 + 2
-    assert len(sig["mgp_tril_dl_w"]) == 3 + 3 + 2 + 2
-    assert len(sig["mgp_tril_da_w"]) == 3 + 3 + 1 + 2
+    assert len(sig["mgp_tril_dl"]) == 4 + 3 + 2 + 1
+    assert len(sig["mgp_tril_da"]) == 4 + 3 + 2 + 1
+    assert len(sig["mgp_tril_dl_w"]) == 3 + 3 + 2 + 1
+    assert len(sig["mgp_tril_da_w"]) == 3 + 3 + 1 + 1
