@@ -615,6 +615,8 @@ def phase_kernels():
                                          True)
     rows.update(kl_adam_rows(rand, g))
     rows.update(trsm_t_tril_w_rows(rand, spd_chol))
+    trsm_wide_rows(rand, spd_chol)
+    trsm_arrangements(spd_chol)
     rows.update(chol_quad_rows(rand))
     return rows
 
@@ -711,6 +713,129 @@ def trsm_t_tril_w_rows(rand, spd_chol):
     tril_w_case("ragged", 1, 5, 2, False)
     rows.update(tril_w_case("main", M_FULL, N_GRID, K_EXPERTS, True))
     return rows
+
+
+def trsm_wide_rows(rand, spd_chol):
+    """Phase 2's rows for the TRSM kernels on a wide right side (Nb >=
+    trsm_kernel.WIDE_MIN_NB takes csrc/trsm.cu's wide kernel): #2 and #4 at
+    ragged shapes and at path A's [4096, 8192] and [4096, 32768], #2 on
+    the KL's lower-triangular right side with and without ``tril_rhs``
+    (equal results), all with NaN above L's diagonal.  Gate: the residual
+    max|op(L) X - B| within 3x of the plain version's (+ a few ulps of
+    max|B|); each timed row prints a JSON line with its bound."""
+    from modulatedgps_tpu_torch.ops import trsm_kernel
+    dev = torch.device("cuda")
+    wide = trsm_kernel.WIDE_MIN_NB
+    ops = {"trsm_lower": (trsm_kernel.trsm_lower, trsm_kernel.trsm_lower_plain,
+                          lambda L: L),
+           "trsm_lower_t": (trsm_kernel.trsm_lower_t,
+                            trsm_kernel.trsm_lower_t_plain, lambda L: L.T)}
+
+    def case(name, label, M, Nb, record, tril_K=0):
+        fn, plain, op = ops[name]
+        L = spd_chol(M) if M > 1 else torch.full((1, 1), 0.7, device=dev)
+        L_nan = (L + nan_above(1, M, dev)[0]).contiguous()
+        if tril_K:      # K lower-triangular [M, M] blocks side by side
+            B = torch.tril(rand(tril_K, M, M)).permute(1, 0, 2).reshape(
+                M, tril_K * M).contiguous()
+        else:
+            B = rand(M, Nb)
+        kw = {"tril_rhs": True} if tril_K else {}
+        got = fn(L_nan, B, **kw)
+        torch.cuda.synchronize()
+        want = plain(L_nan, B)
+        res_k = float((op(L) @ got - B).abs().max())
+        res_p = float((op(L) @ want - B).abs().max())
+        floor = 1e-6 * float(B.abs().max())
+        ok = res_k <= 3 * res_p + floor and finite(got)
+        extra = ""
+        if tril_K:
+            full = fn(L_nan, B)
+            torch.cuda.synchronize()
+            same = torch.equal(got, full)
+            ok = ok and same
+            extra = f"; tril_rhs and the unskipped walk equal: {same}"
+        check(ok, f"{name} {label} M={M} Nb={Nb}{' tril_rhs' if tril_K else ''}"
+              f": residual kernel {res_k:.3e} vs plain {res_p:.3e} (<= 3x + "
+              f"{floor:.1e}), max_abs_err {float((got - want).abs().max()):.3e}, "
+              f"NaN above L's diagonal{extra}")
+        if not record:
+            return
+        Lop = op(L).contiguous()
+        fns = [lambda: fn(L_nan, B, **kw), lambda: plain(L_nan, B),
+               lambda: torch.linalg.solve_triangular(Lop, B,
+                                                     upper=name.endswith("_t"))]
+        if tril_K:
+            fns.append(lambda: fn(L_nan, B))
+        times = cuda_ms(fns, 3)
+        # M^2 Nb / 2 multiply-adds; a triangular right side needs K M^3 / 6.
+        macs = tril_K * M ** 3 / 6 if tril_K else M * M * Nb / 2
+        row = {"max_abs_err": float((got - want).abs().max()), "ms": times[0],
+               "plain_ms": times[1],
+               **bound(4 * (M * (M + 1) // 2 + 2 * M * Nb), 2 * macs, "fp32"),
+               "library_ms": times[2]}
+        log(f"  {name} M={M} Nb={Nb}{' tril_rhs' if tril_K else ''}: kernel "
+            f"{times[0]:.4f} ms ({2 * macs / times[0] / 1e9:.1f} TFLOP/s), plain "
+            f"{times[1]:.4f} ms, solve_triangular {times[2]:.4f} ms"
+            + (f", without tril_rhs {times[3]:.4f} ms" if tril_K else ""))
+        log(f"  {name} M={M} Nb={Nb}{' tril_rhs' if tril_K else ''} row: "
+            f"{json.dumps(row)}")
+        del B, got, want
+
+    for name in ops:
+        case(name, "ragged, wide", 1, wide + 5, False)
+        case(name, "ragged, wide", 130, wide + 16, False)
+        case(name, "ragged, wide", 200, wide + 3, False)
+    case("trsm_lower", "ragged, narrow", 200, 3 * 200, False, tril_K=3)
+    case("trsm_lower", "ragged, wide", 200, 21 * 200, False, tril_K=21)
+    case("trsm_lower", "ragged, wide", 130, 32 * 130, False, tril_K=32)
+    for name in ops:
+        case(name, "main", M_FULL, BATCH, True)
+        case(name, "main", M_FULL, K_EXPERTS * M_FULL, True)
+    case("trsm_lower", "main", M_FULL, K_EXPERTS * M_FULL, True,
+         tril_K=K_EXPERTS)
+
+
+def trsm_arrangements(spd_chol):
+    """The TRSM kernels of csrc/trsm.cu timed in turns at M=4096 on wide
+    right sides: the narrow kernel (16 columns, 4x1 thread tiles), the wide
+    kernel with 32-column strips (4x2) and 64-column strips (4x4), and the
+    pair kernel (two block rows at a time, 8x8), each checked bit-equal to
+    the narrow kernel (the pair kernel's transposed walk, which sums in the
+    other order, within 3x of its residual)."""
+    from modulatedgps_tpu_torch import _native
+    from modulatedgps_tpu_torch.ops import trsm_kernel
+    dev = torch.device("cuda")
+    lib = _native.library()
+    names = ("narrow 4x1/16", "wide 4x2/32", "wide 4x4/64", "pair 8x8/64")
+    L = spd_chol(M_FULL)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    log("  trsm arrangements, M=4096 (ms, CUDA-event medians of 3, in turns):")
+    for Nb in (2048, 4096, 8192, K_EXPERTS * M_FULL):
+        B = torch.randn(M_FULL, Nb, generator=g).to(dev)
+        for name, fn, op in (("trsm_lower", trsm_kernel.trsm_lower, L),
+                             ("trsm_lower_t", trsm_kernel.trsm_lower_t, L.T)):
+            outs = []
+            for route in (1, 2, 3, 4):
+                lib.mgp_trsm_route(route)
+                outs.append(fn(L, B))
+            torch.cuda.synchronize()
+            res = [float((op @ x - B).abs().max()) for x in outs]
+            same = [torch.equal(x, outs[0]) for x in outs]
+            check(all(same[:3]) and (same[3] or (name.endswith("_t")
+                                                 and res[3] <= 3 * res[0])),
+                  f"{name} Nb={Nb}: arrangements bit-equal to the narrow "
+                  f"kernel {same}, residuals {[f'{r:.2e}' for r in res]}")
+            del outs
+            fns = []
+            for route in (1, 2, 3, 4):
+                fns.append(lambda route=route: (lib.mgp_trsm_route(route),
+                                                fn(L, B)))
+            times = cuda_ms(fns, 3)
+            log(f"    {name} Nb={Nb}: " + ", ".join(
+                f"{n} {t:.3f}" for n, t in zip(names, times)))
+        del B
+    lib.mgp_trsm_route(0)
 
 
 def bwd_check(name, label, M, N, K, got, want):
@@ -1277,7 +1402,9 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("tri_tt_kernel", "pullback tt (#10)"),
             ("tri_nt_kernel", "pullback nt (#11)"),
             ("kxz_kernel", "kxz (#1)"),
-            ("solve_kernel<true>", "trsm transposed (#4)"),
+            ("wide_solve_kernel<true", "trsm transposed, wide B (#4)"),
+            ("wide_solve_kernel<false", "trsm, wide B (#2)"),
+            ("solve_kernel<true", "trsm transposed (#4)"),
             ("solve_kernel", "trsm (#2)"),
             # the main paths' solves all take the Cholesky's block inverses,
             # so diag_inv_kernel runs only as the factor's last launch
@@ -1995,16 +2122,19 @@ def phase_joint_grad_reference(pt, dev="cuda", M=M_REF, N=N_GRID_REF,
 
 
 def phase_against(parent: str) -> None:
-    """The Cholesky (#15/#16), the tril forward (#3/#5) and the tril
-    backward (#6-#9) of this checkout against those of another one
+    """The Cholesky (#15/#16), the tril forward (#3/#5), the tril backward
+    (#6-#9), the TRSM (#2 inverse and wide, #4) and the fused q_sqrt
+    quadratic (#17) of this checkout against those of another one
     (``parent``, e.g. a checkout of the parent commit), both packages
     loaded in this process: CUDA-event medians at the main shapes, timed
-    in turns (parent, this, this, parent) over the same inputs, the factors
-    and the forwards' outputs compared bit for bit and the backwards'
-    within 1e-3 of the parent's maximum."""
+    in turns (parent, this, this, parent) over the same inputs, the
+    factors, the forwards' and the solves' outputs compared bit for bit,
+    the backwards' within 1e-3 of the parent's maximum and #17's within
+    rtol 1e-4."""
     import importlib
     import importlib.util
-    from modulatedgps_tpu_torch.ops import chol_kernel, tril_kernel
+    from modulatedgps_tpu_torch.ops import (chol_kernel, quad_kernel, tril_kernel,
+                                            trsm_kernel)
     root = Path(parent).resolve() / "modulatedgps_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         "parent_port", root / "__init__.py",
@@ -2075,6 +2205,41 @@ def phase_against(parent: str) -> None:
                   lambda: parent_fn(*args), lambda: this_fn(*args), 5)
             del got, want
         del A16, L16, B16, G, W16
+    # The TRSM (#2: the inverse and a wide B; #4) bit-equal to the parent's,
+    # and #17 within rtol 1e-4 (atol 1e-5 of the maximum) of the parent's,
+    # with NaN above L's and S's diagonals.
+    ptrsm = importlib.import_module("parent_port.ops.trsm_kernel")
+    pquad = importlib.import_module("parent_port.ops.quad_kernel")
+    L, Inv = chol_kernel.cholesky_factor(north_star_kmm(M, PRED_SE))
+    L_nan = L + nan_above(1, M, dev)[0]
+    B = torch.randn(M, BATCH, generator=g).to(dev)
+    for what, fn, pfn, args, kw in (
+            ("trsm_lower inverse", trsm_kernel.trsm_lower, ptrsm.trsm_lower,
+             (L_nan,), {"inv": Inv}),
+            (f"trsm_lower [{M}, {BATCH}]", trsm_kernel.trsm_lower,
+             ptrsm.trsm_lower, (L_nan, B), {"inv": Inv}),
+            (f"trsm_lower_t [{M}, {BATCH}]", trsm_kernel.trsm_lower_t,
+             ptrsm.trsm_lower_t, (L_nan, B), {"inv": Inv})):
+        got, want = fn(*args, **kw), pfn(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{what}: bit-equal to the parent's "
+              f"(max |this - parent| {float((got - want).abs().max()):.3e})")
+        turns(what, lambda: pfn(*args, **kw), lambda: fn(*args, **kw), 5)
+        del got, want
+    S16 = (torch.eye(M, device=dev) + 0.05 * torch.randn(
+        K_EXPERTS, M, M, generator=g).to(dev)
+        + nan_above(K_EXPERTS, M, dev)).to(torch.bfloat16)
+    A = (torch.randn(M, BATCH, generator=g) / math.sqrt(M)).to(dev)
+    got, want = quad_kernel.qsqrt_sq_colsum(S16, A), pquad.qsqrt_sq_colsum(S16, A)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err, bad = allclose_report(got, want, 1e-4, 1e-5 * scale)
+    check(bad == 0, f"qsqrt_sq_colsum K={K_EXPERTS} M={M} N={BATCH}: max "
+          f"|this - parent| {err:.3e} of max {scale:.3e} (rtol 1e-4, atol "
+          f"1e-5 max)")
+    turns(f"qsqrt_sq_colsum K={K_EXPERTS} M={M} N={BATCH}",
+          lambda: pquad.qsqrt_sq_colsum(S16, A),
+          lambda: quad_kernel.qsqrt_sq_colsum(S16, A), 5)
 
 
 def main() -> int:

@@ -33,7 +33,8 @@ _F = ctypes.c_float
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_trsm_route": (_I,),
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -48,7 +49,7 @@ _SIGNATURES = {
     "mgp_adam_tril": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                       _P),
     "mgp_cholesky": (_P, _P, _P, _P, _P, _I, _P),
-    "mgp_qsqrt_sq_colsum": (_P, _P, _P, _I, _I, _I, _P),
+    "mgp_qsqrt_sq_colsum": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
-// Tile helpers shared by the kernels that stage through registers (trimm.cu,
-// quad.cu): 16-byte staging loads with ragged-edge masking, and the fp32
-// epilogue that writes a warp's wmma accumulator fragments to a row-major
-// matrix; Pack8 also serves hopper.cuh.
+// Tile helpers of the kernels that stage through registers (trimm.cu):
+// 16-byte staging loads with ragged-edge masking, and the fp32 epilogue
+// that writes a warp's wmma accumulator fragments to a row-major matrix;
+// Pack8 serves hopper.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,25 +15,6 @@ union Pack8 {
   uint4 u;
   unsigned short s[8];
 };
-
-// Eight bf16 of row `row`, columns col..col+7, of a row-major [rows, cols]
-// matrix; entries past either edge read as 0.  vec_ok: cols % 8 == 0, so a
-// full in-bounds run is one aligned 16-byte load.
-__device__ __forceinline__ uint4 load_row8(const __nv_bfloat16* __restrict__ base,
-                                           int row, int rows, int col, int cols,
-                                           bool vec_ok) {
-  Pack8 p;
-  if (row < rows && vec_ok && col + 8 <= cols) {
-    p.u = *reinterpret_cast<const uint4*>(base + (size_t)row * cols + col);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      p.s[e] = (row < rows && col + e < cols)
-                   ? __bfloat16_as_ushort(base[(size_t)row * cols + col + e])
-                   : 0;
-  }
-  return p.u;
-}
 
 // Four fp32 of row `row`, columns col..col+3, of a row-major [n, n] matrix;
 // entries past the edge read as 0.  vec_ok: n % 4 == 0.

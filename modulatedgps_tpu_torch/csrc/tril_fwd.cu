@@ -17,7 +17,8 @@
 // output type at the end; never bf16 accumulation or TF32.
 //
 // Design (Hopper; mbarriers, TMA, descriptors, wgmma and the zeroing are
-// hopper.cuh's, shared with tril_bwd.cu): the product is a GEMM with
+// hopper.cuh's, shared with tril_bwd.cu; the mainloop is
+// tril_product.cuh's, shared with quad.cu): the product is a GEMM with
 // wgmma's M = n (64-row slabs), N = m' (BP = 256) and K = m.  A [M, N] is
 // n-contiguous and L_k [M, M] is m'-contiguous, so both tiles are MN-major
 // operands as they lie in memory, which bf16 wgmma reads through the
@@ -49,22 +50,11 @@
 // columns (L) into scratch where N or M is not such a multiple.  Reads past
 // the arrays are zero-filled by TMA; the kernel takes m < M only and stores
 // n < N, m' < M only, so B's own stride is M whatever the padding.
-#include "hopper.cuh"
+#include "tril_product.cuh"
 
 namespace {
 
 using namespace mgp;
-
-constexpr int BN = 128;        // n rows of the output tile (two warpgroups of 64)
-constexpr int BP = 256;        // m' columns of the output tile
-constexpr int BK = 64;         // m depth per stage
-constexpr int STAGES = 4;
-constexpr int LBOXES = BP / BOX;                  // L boxes a stage
-constexpr int STAGE_BYTES = (2 + LBOXES) * CHUNK; // A: 2 boxes, then L's
-constexpr int NACC = BP / 2;                      // fp32 accumulators a thread
-constexpr int NCONS = 256;                        // two consumer warpgroups
-constexpr int NTHR = NCONS + 32;                  // and one producer warp
-constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b, bool both, bool vec) {
   if (both && vec) {
@@ -84,110 +74,21 @@ __device__ __forceinline__ void store2(float* dst, float a, float b, bool both, 
   }
 }
 
-// Output tile t -> (m'-tile p, expert k, n-tile nt): p slowest (the longest
-// m-runs first), then the n-tile, then k.
-__device__ __forceinline__ void tile_coords(int t, int K, int ntn, int& p, int& k, int& nt) {
-  const int per_p = K * ntn;
-  p = t / per_p;
-  const int o = t - p * per_p;
-  nt = o / K;
-  k = o - nt * K;
-}
-
+// The epilogue: each accumulator rounded once to OutT and stored in pairs
+// to B [K, N, M] (m' contiguous), masked at the N and M edges.
 template <typename OutT>
-__global__ void __launch_bounds__(NTHR, 1)
-tril_fwd_kernel(const __grid_constant__ CUtensorMap mapA,
-                const __grid_constant__ CUtensorMap mapL, OutT* __restrict__ Bout,
-                int M, int N, int K) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
-  const int tid = threadIdx.x;
-  const int ntn = (N + BN - 1) / BN;
-  const int tiles = ((M + BP - 1) / BP) * K * ntn;
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);      // one arrival per consumer warpgroup
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= NCONS) {              // the producer warp: one lane issues TMA
-    if (tid == NCONS) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        int p, k, nt;
-        tile_coords(t, K, ntn, p, k, nt);
-        const int p0 = p * BP, n0 = nt * BN;
-        for (int m0 = p0; m0 < M; m0 += BK) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], STAGE_BYTES);
-          uint8_t* st = smem + stage * STAGE_BYTES;
-          tma_load_2d(st, &mapA, &full[stage], n0, m0);
-          tma_load_2d(st + CHUNK, &mapA, &full[stage], n0 + BOX, m0);
-          for (int h = 0; h < LBOXES; ++h)
-            tma_load_3d(st + (2 + h) * CHUNK, &mapL, &full[stage], p0 + h * BOX, m0, k);
-          if (++stage == STAGES) { stage = 0; phase ^= 1; }
-        }
-      }
-    }
-    return;
-  }
-
-  // Consumers: warpgroup wg owns n-rows n0 + 64 wg .. + 63 of the tile.
-  const int wg = tid / 128, lt = tid % 128;
-  const int lane = lt % 32, wq = lt / 32;
-  const bool vec = (M % 2) == 0;
-  int stage = 0;
-  uint32_t phase = 0;
-  float acc[NACC];
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    int p, k, nt;
-    tile_coords(t, K, ntn, p, k, nt);
-    const int p0 = p * BP, n0 = nt * BN;
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-    int held = -1;                 // the stage the wgmma group in flight reads
-    for (int m0 = p0; m0 < M; m0 += BK) {
-      mbar_wait(&full[stage], phase);
-      uint8_t* st = smem + stage * STAGE_BYTES;
-      if (m0 < p0 + BP) {          // the L tile straddles the diagonal
-        zero_upper<BOX, LBOXES, NCONS>(st + 2 * CHUNK, m0 - p0, tid);
-        fence_proxy_async();
-        asm volatile("bar.sync 1, %0;" ::"n"(NCONS) : "memory");
-      }
-      const uint32_t a_base = smem_u32(st + wg * CHUNK);
-      const uint32_t l_base = smem_u32(st + 2 * CHUNK);
-      fence_operands(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)   // 16 m-rows = 2 atoms of 8 rows
-        wgmma_m64n256(acc, desc_mn_sw128(a_base + kk * 2048, CHUNK, 1024),
-                   desc_mn_sw128(l_base + kk * 2048, CHUNK, 1024));
-      wgmma_commit();
-      // Keep this step's group in flight: wait for the one before it and
-      // hand its stage back to the producer.
-      wgmma_wait<1>();
-      fence_operands(acc);
-      if (held >= 0 && lt == 0) mbar_arrive(&empty[held]);
-      held = stage;
-      if (++stage == STAGES) { stage = 0; phase ^= 1; }
-    }
-    wgmma_wait<0>();
-    fence_operands(acc);
-    if (held >= 0 && lt == 0) mbar_arrive(&empty[held]);
-    // acc[4 c + 2 h + e] is row 16 wq + lane / 4 + 8 h, column 8 c + 2 (lane
-    // % 4) + e of the warpgroup's 64 x BP slab.
-    OutT* Bk = Bout + (size_t)k * N * M;
+struct StoreB {
+  OutT* B;
+  int M, N;
+  __device__ __forceinline__ void operator()(float (&acc)[TP_NACC], int k, int p, int n0,
+                                             int wg, int lt) const {
+    const int lane = lt % 32, wq = lt / 32;
+    const bool vec = (M % 2) == 0;
+    const int p0 = p * TP_BP;
+    OutT* Bk = B + (size_t)k * N * M;
     const int row = n0 + 64 * wg + 16 * wq + lane / 4;
 #pragma unroll
-    for (int c = 0; c < BP / 8; ++c) {
+    for (int c = 0; c < TP_BP / 8; ++c) {
       const int mp = p0 + 8 * c + 2 * (lane % 4);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -198,33 +99,22 @@ tril_fwd_kernel(const __grid_constant__ CUtensorMap mapA,
       }
     }
   }
+};
+
+template <typename OutT>
+__global__ void __launch_bounds__(TP_NTHR, 1)
+tril_fwd_kernel(const __grid_constant__ CUtensorMap mapA,
+                const __grid_constant__ CUtensorMap mapL, OutT* __restrict__ Bout,
+                int M, int N, int K) {
+  tril_product(&mapA, &mapL, M, N, K, StoreB<OutT>{Bout, M, N});
 }
 
 template <typename OutT>
 int launch(const void* A, const void* L, void* B, int M, int N, int K, int lda, int ldl,
            void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
-  if (lda % 8 != 0 || ldl % 8 != 0 || lda < N || ldl < M)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mapA, mapL;
-  const cuuint64_t dimsA[2] = {(cuuint64_t)lda, (cuuint64_t)M};
-  const cuuint64_t strideA[1] = {(cuuint64_t)lda * 2};
-  const cuuint64_t dimsL[3] = {(cuuint64_t)ldl, (cuuint64_t)ldl, (cuuint64_t)K};
-  const cuuint64_t strideL[2] = {(cuuint64_t)ldl * 2, (cuuint64_t)ldl * ldl * 2};
-  if (!encode_bf16(&mapA, 2, A, dimsA, strideA, BOX) ||
-      !encode_bf16(&mapL, 3, L, dimsL, strideL, BOX))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      tril_fwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = (long long)((M + BP - 1) / BP) * K * ((N + BN - 1) / BN);
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  tril_fwd_kernel<OutT><<<grid, NTHR, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      mapA, mapL, static_cast<OutT*>(B), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tril_product(tril_fwd_kernel<OutT>, A, L, M, N, K, lda, ldl, stream,
+                             static_cast<OutT*>(B), M, N, K);
 }
 
 }  // namespace

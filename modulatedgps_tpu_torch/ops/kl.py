@@ -23,7 +23,9 @@ With the prior covariance Kmm (an unwhitened layer), L = chol(Kmm) and
               + K log det Kmm),
 
 the trace taken as |L^-1 S|^2, one solve with a [M, K*M] right side (the
-diagonal of Kmm^-1 for a diagonal q_sqrt).  Its gradients go through the
+diagonal of Kmm^-1 for a diagonal q_sqrt); both right sides are
+lower-triangular in each latent's M columns, so the solve skips their zero
+rows (``tril_rhs``).  Its gradients go through the
 solve's and the Cholesky's autograd Functions (ops/linalg.py); #12/#13
 serve the whitened form only, as in JAX.
 """
@@ -92,11 +94,12 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
     if Lq is None:
         logdet_q = 2.0 * torch.log(q_sqrt).sum()
         eye = torch.eye(M, dtype=Kmm.dtype, device=Kmm.device)
-        Kinv_diag = solve_lower(Lp, eye, inv=inv).square().sum(0)  # diag Kmm^-1
+        Kinv_diag = solve_lower(Lp, eye, inv=inv,
+                                tril_rhs=True).square().sum(0)  # diag Kmm^-1
         trace = (Kinv_diag[:, None] * q_sqrt.square()).sum()
     else:
         logdet_q = 2.0 * torch.log(
             torch.diagonal(Lq, dim1=-2, dim2=-1).abs()).sum()
-        trace = solve_lower(Lp, Lq, inv=inv).square().sum()
+        trace = solve_lower(Lp, Lq, inv=inv, tril_rhs=True).square().sum()
     logdet_p = 2.0 * torch.log(torch.diagonal(Lp)).sum()
     return 0.5 * (mahalanobis - M * K - logdet_q + trace + K * logdet_p)

@@ -76,18 +76,23 @@ def triangular_inverse(L: torch.Tensor, inv=None) -> torch.Tensor:
 
 
 def solve_lower(L: torch.Tensor, B: torch.Tensor, *, trans: bool = False,
-                inv=None) -> torch.Tensor:
+                inv=None, tril_rhs: bool = False) -> torch.Tensor:
     """L^-1 B, or L^-T B with ``trans``, by blocked substitution,
     differentiable in L and B.  L [M, M] (upper triangle ignored); B
     [M, Nb], or [K, M, Nb], solved as one [M, K*Nb] right side.  ``inv``,
     the inverses of L's diagonal blocks from ``cholesky_with_inv``, saves
-    recomputing them in the solve and in its pullback."""
+    recomputing them in the solve and in its pullback.  ``tril_rhs``
+    (forward solve only) promises that B [M, M], or each B_k, is
+    lower-triangular, so the kernel skips the zero rows of the right side
+    (trsm_lower's keyword; the pullback's solve gets no skip)."""
+    if tril_rhs and trans:
+        raise ValueError("solve_lower: tril_rhs applies to the forward solve")
     if B.ndim == 3:
         K, M, Nb = B.shape
         X = _SolveLower.apply(L, B.permute(1, 0, 2).reshape(M, K * Nb), trans,
-                              inv)
+                              inv, tril_rhs)
         return X.reshape(M, K, Nb).permute(1, 0, 2)
-    return _SolveLower.apply(L, B, trans, inv)
+    return _SolveLower.apply(L, B, trans, inv, tril_rhs)
 
 
 class _SolveLower(torch.autograd.Function):
@@ -97,8 +102,10 @@ class _SolveLower(torch.autograd.Function):
     to XLA."""
 
     @staticmethod
-    def forward(ctx, L, B, trans, inv):
-        X = (trsm_lower_t if trans else trsm_lower)(L, B.contiguous(), inv=inv)
+    def forward(ctx, L, B, trans, inv, tril_rhs):
+        B = B.contiguous()
+        X = (trsm_lower_t(L, B, inv=inv) if trans
+             else trsm_lower(L, B, inv=inv, tril_rhs=tril_rhs))
         ctx.trans = trans
         ctx.save_for_backward(L, X, inv)
         return X
@@ -112,7 +119,7 @@ class _SolveLower(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             G = X @ Bbar.T if ctx.trans else Bbar @ X.T
             Lbar = torch.tril(G).neg_()
-        return Lbar, Bbar if ctx.needs_input_grad[1] else None, None, None
+        return Lbar, Bbar if ctx.needs_input_grad[1] else None, None, None, None
 
 
 def whiten_solve(Kmm: torch.Tensor, Kmn: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,14 @@ through qsqrt_sq_colsum.  It is tril_kernel.atl_sq_colsum's function, but
 the [K, N, M] product never reaches memory and is squared from its fp32
 accumulators (where atl_sq_colsum first rounds it to bf16, because its
 backward kernels read it): the served variance's |S_k^T a|^2, where no
-backward is asked for.  The kernel is csrc/quad.cu: one CUDA block per
-(n-tile, k) walks the lower triangle of S_k tile by tile on bf16 wmma
-fragments with fp32 accumulators, squares and sums in fp32 in a fixed
-order (two runs give the same bits).  The TPU's MAX_M (VMEM) gate does not
-carry over.
+backward is asked for.  The kernel is csrc/quad.cu: the tril forward's TMA
+and wgmma product (csrc/tril_product.cuh: bf16 operands, fp32 accumulators
+over each whole m-run) with an epilogue that squares each output tile and
+sums its rows in fp32, one partial sum per (k, m'-tile, n) in the scratch
+``part`` [K, ceil(M / 256), N]; a second launch adds the partial sums in
+order (two runs give the same bits).  Its TMA needs 16-byte row strides,
+so A16 and S16 are padded with zeros as tril_kernel._tma_operands pads the
+forward's operands.  The TPU's MAX_M (VMEM) gate does not carry over.
 
 The backward is JAX's _quad_bwd (pallas_quad.py:120-130): recompute
 tril(S)^T A, W = 2 g S^T A, dA = sum_k S_k W_k, dS = tril(A W^T), as plain
@@ -26,8 +29,12 @@ from __future__ import annotations
 import torch
 
 from .. import _native
+from .tril_kernel import _tma_operands
 
-__all__ = ["qsqrt_sq_colsum", "qsqrt_sq_colsum_plain", "check_launch_args"]
+__all__ = ["qsqrt_sq_colsum", "qsqrt_sq_colsum_plain", "check_launch_args",
+           "TILE_P"]
+
+TILE_P = 256   # m' columns of csrc/quad.cu's output tile: part's middle axis
 
 
 def qsqrt_sq_colsum_plain(S, A):
@@ -51,10 +58,13 @@ def _sq_colsum(S16, A16):
     check_launch_args(S16, A16)
     K, M, _ = S16.shape
     N = A16.shape[1]
-    out = torch.zeros((K, N), dtype=torch.float32, device=A16.device)
+    A16, S16 = _tma_operands(A16, S16)
+    part = torch.empty((K, -(-M // TILE_P), N), dtype=torch.float32,
+                       device=A16.device)
+    out = torch.empty((K, N), dtype=torch.float32, device=A16.device)
     code = _native.library().mgp_qsqrt_sq_colsum(
-        S16.data_ptr(), A16.data_ptr(), out.data_ptr(), M, N, K,
-        _native.stream_ptr(A16.device))
+        S16.data_ptr(), A16.data_ptr(), part.data_ptr(), out.data_ptr(), M, N,
+        K, A16.shape[1], S16.shape[-1], _native.stream_ptr(A16.device))
     _native.check(code, "qsqrt_sq_colsum")
     qsqrt_sq_colsum.launches += 1
     return out

@@ -7,11 +7,16 @@ linalg._pallas_trinv) and _trsm_t_kernel (the same calls with
 ``trans=True``).  The kernels are csrc/trsm.cu.  On the H100 the forward
 substitution of an inverse is bound by its sequential walk over block rows;
 a solve with a wide B by the rate of its fp32 FMAs.  One launch inverts the
-64x64 diagonal blocks, and a second gives each 16-column strip of B its own
+64x64 diagonal blocks, and a second gives each column strip of B its own
 CUDA block, which walks the block rows in order (the TPU's fori_loop over row
-blocks) with fp32 FMAs only: downwards for L^-1 B, upwards for L^-T B.  For
-the inverse (B = I, ``B=None``) a strip skips the block rows above its
-diagonal.  A caller holding the Cholesky's diagonal-block inverses
+blocks) with fp32 FMAs only: downwards for L^-1 B, upwards for L^-T B.  The
+inverse and a B narrower than ``WIDE_MIN_NB`` columns take 16-column strips;
+a wider B takes 64-column strips with a 4x4 register tile a thread, fed
+through a cp.async ring: a shape rule between two kernels that give the same
+bits.  For the inverse (B = I, ``B=None``) a strip skips the block rows above
+its diagonal, and so does the forward solve with ``tril_rhs=True`` (each run
+of M columns of B lower-triangular, as the unwhitened KL's [M, K*M] right
+side), with the same result.  A caller holding the Cholesky's diagonal-block inverses
 (chol_kernel.cholesky_factor, the JAX package's ``_trsm_pallas_raw(L, Inv,
 B)``) passes them as ``inv`` and the first launch is skipped.
 
@@ -26,9 +31,10 @@ import torch
 from .. import _native
 
 __all__ = ["trsm_lower", "trsm_lower_plain", "trsm_lower_t",
-           "trsm_lower_t_plain", "check_launch_args", "BLOCK"]
+           "trsm_lower_t_plain", "check_launch_args", "BLOCK", "WIDE_MIN_NB"]
 
 BLOCK = 64   # diagonal block size of csrc/trsm.cu
+WIDE_MIN_NB = 4096   # csrc/trsm.cu's kWideMinNb: a B this wide takes the wide kernel
 
 
 def trsm_lower_plain(L, B=None):
@@ -82,15 +88,24 @@ def _launch(what, L, B, inv, *args):
     return X
 
 
-def trsm_lower(L, B=None, *, inv=None):
+def trsm_lower(L, B=None, *, inv=None, tril_rhs=False):
     """L^-1 B for L [M, M] (upper triangle ignored) and B [M, Nb]; B=None
     means the identity, i.e. the triangular inverse.  ``inv``
     [ceil(M/64), 64, 64], the inverses of L's diagonal blocks as
     chol_kernel.cholesky_factor returns them, saves the kernel's first
-    launch."""
-    if not _check_shapes("trsm_lower", L, B):
+    launch.  ``tril_rhs`` promises that each run of M columns of B is
+    lower-triangular (Nb a multiple of M), so the kernel skips the zero
+    block rows above each strip's first column; the plain version ignores
+    it."""
+    cuda = _check_shapes("trsm_lower", L, B)
+    M = L.shape[0]
+    if tril_rhs and (B is None or M == 0 or B.shape[1] % M != 0):
+        raise ValueError(f"trsm_lower: tril_rhs needs B [M, Nb] with Nb a "
+                         f"multiple of M={M}, got "
+                         f"{None if B is None else tuple(B.shape)}")
+    if not cuda:
         return trsm_lower_plain(L, B)
-    X = _launch("trsm_lower", L, B, inv, int(B is None))
+    X = _launch("trsm_lower", L, B, inv, int(B is None), int(tril_rhs))
     trsm_lower.launches += 1
     return X
 

@@ -146,9 +146,9 @@ def test_unwhitened_solves_are_fed_the_factor_inverses():
     seen = []
 
     def recording(fn):
-        def solve(L, B=None, *, inv=None):
+        def solve(L, B=None, *, inv=None, **kw):
             seen.append(None if inv is None else tuple(inv.shape))
-            return fn(L, B, inv=inv)
+            return fn(L, B, inv=inv, **kw)
         return solve
 
     from modulatedgps_tpu_torch.ops import kl
