@@ -7,9 +7,9 @@ once on one NVIDIA card.
     python3 chip_smoke.py --against DIR   # only the build and the A/B below
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
-builds both, times the Cholesky and the tril forward and backward kernels
-of the two in turns on the same inputs and compares their outputs, and
-prints no last line.
+builds both, times the Cholesky, the tril forward and backward kernels, the
+TRSM (#2, #4) and the fused q_sqrt quadratic (#17) of the two in turns on
+the same inputs and compares their outputs, and prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -20,6 +20,9 @@ Phases, each printing its own lines:
      PyTorch call computing the same function, beside the kernel's bound;
      the tril backward kernels (#6-#9) at aligned, padded and M=1 shapes
      with NaN above L's diagonal;
+     the TRSM (#2, #4) on wide right sides (csrc/trsm.cu's wide kernel) at
+     ragged shapes, [4096, 8192] and [4096, 32768], and #2 on the KL's
+     lower-triangular right side with and without tril_rhs (equal);
      the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
@@ -616,7 +619,6 @@ def phase_kernels():
     rows.update(kl_adam_rows(rand, g))
     rows.update(trsm_t_tril_w_rows(rand, spd_chol))
     trsm_wide_rows(rand, spd_chol)
-    trsm_arrangements(spd_chol)
     rows.update(chol_quad_rows(rand))
     return rows
 
@@ -794,48 +796,6 @@ def trsm_wide_rows(rand, spd_chol):
         case(name, "main", M_FULL, K_EXPERTS * M_FULL, True)
     case("trsm_lower", "main", M_FULL, K_EXPERTS * M_FULL, True,
          tril_K=K_EXPERTS)
-
-
-def trsm_arrangements(spd_chol):
-    """The TRSM kernels of csrc/trsm.cu timed in turns at M=4096 on wide
-    right sides: the narrow kernel (16 columns, 4x1 thread tiles), the wide
-    kernel with 32-column strips (4x2) and 64-column strips (4x4), and the
-    pair kernel (two block rows at a time, 8x8), each checked bit-equal to
-    the narrow kernel (the pair kernel's transposed walk, which sums in the
-    other order, within 3x of its residual)."""
-    from modulatedgps_tpu_torch import _native
-    from modulatedgps_tpu_torch.ops import trsm_kernel
-    dev = torch.device("cuda")
-    lib = _native.library()
-    names = ("narrow 4x1/16", "wide 4x2/32", "wide 4x4/64", "pair 8x8/64")
-    L = spd_chol(M_FULL)
-    g = torch.Generator(device="cpu").manual_seed(5)
-    log("  trsm arrangements, M=4096 (ms, CUDA-event medians of 3, in turns):")
-    for Nb in (2048, 4096, 8192, K_EXPERTS * M_FULL):
-        B = torch.randn(M_FULL, Nb, generator=g).to(dev)
-        for name, fn, op in (("trsm_lower", trsm_kernel.trsm_lower, L),
-                             ("trsm_lower_t", trsm_kernel.trsm_lower_t, L.T)):
-            outs = []
-            for route in (1, 2, 3, 4):
-                lib.mgp_trsm_route(route)
-                outs.append(fn(L, B))
-            torch.cuda.synchronize()
-            res = [float((op @ x - B).abs().max()) for x in outs]
-            same = [torch.equal(x, outs[0]) for x in outs]
-            check(all(same[:3]) and (same[3] or (name.endswith("_t")
-                                                 and res[3] <= 3 * res[0])),
-                  f"{name} Nb={Nb}: arrangements bit-equal to the narrow "
-                  f"kernel {same}, residuals {[f'{r:.2e}' for r in res]}")
-            del outs
-            fns = []
-            for route in (1, 2, 3, 4):
-                fns.append(lambda route=route: (lib.mgp_trsm_route(route),
-                                                fn(L, B)))
-            times = cuda_ms(fns, 3)
-            log(f"    {name} Nb={Nb}: " + ", ".join(
-                f"{n} {t:.3f}" for n, t in zip(names, times)))
-        del B
-    lib.mgp_trsm_route(0)
 
 
 def bwd_check(name, label, M, N, K, got, want):

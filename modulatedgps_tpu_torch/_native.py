@@ -34,7 +34,6 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_trsm_lower": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mgp_trsm_route": (_I,),
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -9,7 +9,8 @@
 // Bound on the H100: fp32 FMA only (the TPU ran these products at HIGHEST;
 // the tensor cores have no full-fp32 rate).  With a wide B (Nb = 8192 or
 // 32768 columns on the unwhitened path) the solve is bound by the fp32 FMA
-// rate, M^2 Nb / 2 multiply-adds (2.05 ms at [4096, 8192] at 67 TFLOP/s);
+// rate, M^2 Nb / 2 multiply-adds (2.05 ms at [4096, 8192] at 67 TFLOP/s;
+// in practice by shared-memory bandwidth, below);
 // for the inverse (B = I) and a narrow B by its critical walk down one
 // column strip, (M/64)^2 / 2 tile products in sequence.  Design, two
 // launches:
@@ -30,9 +31,15 @@
 //       M=4096; each thread holds a 4x1 tile; the next (L_kj, X_j) pair is
 //       prefetched into registers.
 //     - wide_solve_kernel (a general B with Nb >= kWideMinNb): 64-column
-//       strips, a 4x4 register tile a thread, so one 16-byte shared load of
-//       L and one of X feed 16 FMAs (the narrow kernel's 4x1 tile took 5
-//       loads for 4 and was bound by shared-memory issue).  The (L_kj, X_j)
+//       strips (Nb = 8192 is 128 blocks, one wave), a 4x4 register tile a
+//       thread, so one 16-byte shared load of L and one of X feed 16 FMAs
+//       (the narrow kernel's 4x1 tile took 5 loads for 4).  A 16-byte
+//       shared load fills four registers of one thread and shared memory
+//       delivers 128 bytes a clock, so 8 floats loaded per 16 FMAs hold the
+//       SM's 128 FMA lanes to about half their rate: the kernel is bound by
+//       shared-memory bandwidth, not by the FMA rate.  (4x2 tiles on
+//       32-column strips, and 8x8 tiles on two block rows at a time with 4
+//       warps an SM, were slower on an H100: PERF.md.)  The (L_kj, X_j)
 //       pairs and the Inv_kk tiles stream through a ring of three stages by
 //       cp.async (the generic proxy, L2 only: X_j was written by this block
 //       one block row earlier, ordered by a __syncthreads after the store);
@@ -50,8 +57,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int BS = 64;        // diagonal block size
@@ -61,14 +66,11 @@ constexpr int RY = NT / TW;   // thread rows (16)
 constexpr int RR = BS / RY;   // rows per thread (4)
 constexpr int LPT = BS * BS / NT;  // L-tile elements per thread (16)
 constexpr int XPT = BS * TW / NT;  // X-tile elements per thread (4)
+constexpr int WW = 64;        // columns per wide strip
+constexpr int CW = WW / 16;   // columns per thread of the wide kernel (4)
 constexpr int STAGES = 3;     // the wide kernel's ring
 constexpr int LDT = BS + 4;   // the wide kernel's row pitch of a staged L or Inv tile
 constexpr int kWideMinNb = 4096;   // a general B at least this wide takes the wide kernel
-
-// Selects the kernel for timing the arrangements against each other: 0 the
-// shape rule, 1 narrow, 2 wide with 32-column strips (4x2 thread tiles), 3
-// wide with 64 (4x4), 4 the pair kernel (8x8).
-int g_route = 0;
 
 __global__ void __launch_bounds__(BS)
 diag_inv_kernel(const float* __restrict__ L, float* __restrict__ Inv, int M) {
@@ -237,29 +239,29 @@ __device__ __forceinline__ void cp_commit() {
 
 // Wait until at most n (0 .. STAGES - 1) groups are still in flight.
 __device__ __forceinline__ void cp_wait(int n) {
+  static_assert(STAGES <= 4, "cp_wait covers up to 3 groups in flight");
   if (n <= 0) asm volatile("cp.async.wait_group 0;" ::: "memory");
   else if (n == 1) asm volatile("cp.async.wait_group 1;" ::: "memory");
   else if (n == 2) asm volatile("cp.async.wait_group 2;" ::: "memory");
-  else if (n == 3) asm volatile("cp.async.wait_group 3;" ::: "memory");
-  else asm volatile("cp.async.wait_group 4;" ::: "memory");
+  else asm volatile("cp.async.wait_group 3;" ::: "memory");
 }
 
 // Rows r0 .. r0 + 63, columns c0 .. c0 + W - 1 of a row-major array with
 // row stride ld into dst [64][DP] (row pitch DP >= W); rows >= rmax or
 // columns >= cmax read as 0.  vec: ld, c0 and cmax multiples of 4 and src
 // 16-byte aligned.
-template <int W, int DP, int NTH = NT>
+template <int W, int DP>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int ld, int r0,
                                           int c0, int rmax, int cmax, bool vec, int tid) {
   if (vec) {
 #pragma unroll
-    for (int e = tid; e < BS * W / 4; e += NTH) {
+    for (int e = tid; e < BS * W / 4; e += NT) {
       const int r = e / (W / 4), c = (e % (W / 4)) * 4;
       const bool ok = r0 + r < rmax && c0 + c < cmax;
       cp_async16(dst + r * DP + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
     }
   } else {
-    for (int e = tid; e < BS * W; e += NTH) {
+    for (int e = tid; e < BS * W; e += NT) {
       const int r = e / W, c = e % W;
       const bool ok = r0 + r < rmax && c0 + c < cmax;
       cp_async4(dst + r * DP + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
@@ -267,7 +269,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int ld, 
   }
 }
 
-__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+// Four floats from one 16-byte load (shared or device memory).
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
   v[1] = t.y;
@@ -275,58 +278,43 @@ __device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
   v[3] = t.w;
 }
 
-template <int CW>
-__device__ __forceinline__ void lds_row(const float* p, float (&v)[CW]) {
-  if constexpr (CW == 4) {
-    lds4(p, v);
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  }
-}
-
-// acc[i][c] (+/-)= sum_p T[row_i][p] Y[p][cc + c], p = 0..63 in order, one
-// fmaf each: T = L_kj or Inv_kk as stored row-major (forward; rows row_i =
-// r + 16 i), or T = S^T for S = L_jk or Inv_kk as stored row-major (kTrans;
-// rows row_i = r + i).  Ts [64][LDT], Ys [64][W].  A warp's threads read
-// four rows and eight column groups: each 16-byte load is one wavefront
-// (the forward's rows 16 apart fall on distinct banks at pitch LDT).
-template <bool kTrans, int CW, int W>
+// The operands of p .. p + 3: t[i][q] = T[row_i][p + q] and y[q][c] =
+// Y[p + q][cc + c] (see tile_product).
+template <bool kTrans>
 __device__ __forceinline__ void tile_operands(const float* Ts, const float* Ys, int r, int cc,
                                               int p, float (&t)[4][4], float (&y)[4][CW]) {
   if (kTrans) {
     float s[4][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) lds4(Ts + (p + q) * LDT + r, s[q]);
+    for (int q = 0; q < 4; ++q) ld4(Ts + (p + q) * LDT + r, s[q]);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) t[i][q] = s[q][i];
   } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) lds4(Ts + (r + 16 * i) * LDT + p, t[i]);
+    for (int i = 0; i < 4; ++i) ld4(Ts + (r + 16 * i) * LDT + p, t[i]);
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) lds_row<CW>(Ys + (p + q) * W + cc, y[q]);
+  for (int q = 0; q < 4; ++q) ld4(Ys + (p + q) * WW + cc, y[q]);
 }
 
 // acc[i][c] (+/-)= sum_p T[row_i][p] Y[p][cc + c], p = 0..63 in order, one
 // fmaf each: T = L_kj or Inv_kk as stored row-major (forward; rows row_i =
 // r + 16 i), or T = S^T for S = L_jk or Inv_kk as stored row-major (kTrans;
-// rows row_i = r + i).  Ts [64][LDT], Ys [64][W].  A warp's threads read
-// four rows and eight column groups: each 16-byte load is one wavefront
-// (the forward's rows 16 apart fall on distinct banks at pitch LDT).  The
-// operands of the next four p are loaded while the current four multiply.
-template <bool kTrans, bool kNeg, int CW, int W>
+// rows row_i = r + i).  Ts [64][LDT], Ys [64][WW].  A warp's threads read
+// four rows and eight column groups, free of bank conflicts (the forward's
+// rows 16 apart fall on distinct banks at pitch LDT).  The operands of the
+// next four p are loaded while the current four multiply.
+template <bool kTrans, bool kNeg>
 __device__ __forceinline__ void tile_product(const float* Ts, const float* Ys, int r, int cc,
                                              float (&acc)[4][CW]) {
   float t[2][4][4], y[2][4][CW];   // t[.][i][q] = T[row_i][p + q]
-  tile_operands<kTrans, CW, W>(Ts, Ys, r, cc, 0, t[0], y[0]);
+  tile_operands<kTrans>(Ts, Ys, r, cc, 0, t[0], y[0]);
 #pragma unroll
   for (int p = 0; p < BS; p += 4) {
     const int b = (p / 4) % 2;
-    if (p + 4 < BS) tile_operands<kTrans, CW, W>(Ts, Ys, r, cc, p + 4, t[b ^ 1], y[b ^ 1]);
+    if (p + 4 < BS) tile_operands<kTrans>(Ts, Ys, r, cc, p + 4, t[b ^ 1], y[b ^ 1]);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -337,21 +325,20 @@ __device__ __forceinline__ void tile_product(const float* Ts, const float* Ys, i
   }
 }
 
-// The wide walk: one block per strip of W columns (16 thread columns of CW,
+// The wide walk: one block per strip of 64 columns (16 thread columns of 4,
 // 16 thread rows of 4).  The items of the walk, in order: for each block
 // row k, the substitutions j (forward: kstart .. k - 1; kTrans: k + 1 ..
 // nblk - 1), then the diagonal step, item (k, k).  Item t streams through
 // stage t % STAGES: L_kj (L_jk) and X_j, or Inv_kk for the diagonal step,
 // whose X half then takes acc.  Items are queued in order, as far ahead as
 // the ring allows and no further than the first whose X_j is not written.
-template <bool kTrans, int W, int MINB, int S = STAGES>
-__global__ void __launch_bounds__(NT, MINB)
+template <bool kTrans>
+__global__ void __launch_bounds__(NT, 2)
 wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
                   const float* __restrict__ B, float* __restrict__ X, int M, int Nb,
                   int tril_rhs, int lvec, int xvec) {
-  constexpr int CW = W / 16;
   constexpr int LT = BS * LDT;
-  constexpr int ST = LT + BS * W;
+  constexpr int ST = LT + BS * WW;
   extern __shared__ __align__(16) float wsm[];
   const int tid = threadIdx.x;
   // Warp w covers thread rows 4 (w / 2) .. + 3 and thread columns 8 (w % 2)
@@ -365,13 +352,13 @@ wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
   // With a triangular right side the strips that start highest (the
   // longest walks) go first: block b takes strip b / runs of run b % runs.
   int strip = blockIdx.x;
-  if (tril_rhs && M % W == 0) {
+  if (tril_rhs && M % WW == 0) {
     const int runs = Nb / M;
-    strip = (blockIdx.x % runs) * (M / W) + blockIdx.x / runs;
+    strip = (blockIdx.x % runs) * (M / WW) + blockIdx.x / runs;
   }
-  const int c0 = strip * W;
+  const int c0 = strip * WW;
   const int col = c0 + c_own;
-  const int kstart = (!kTrans && tril_rhs) ? first_block(c0, W, M, Nb) : 0;
+  const int kstart = (!kTrans && tril_rhs) ? first_block(c0, WW, M, Nb) : 0;
   const bool vec_io = xvec && col < Nb;   // CW whole columns inside Nb
 
   for (int r = ty; r < min(kstart * BS, M); r += 16)
@@ -385,7 +372,7 @@ wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
     for (int i = 0; i < 4; ++i) {
       const int r = k * BS + row(i);
       if (r < M && vec_io) {
-        lds_row<CW>(B + (size_t)r * Nb + col, acc[i]);
+        ld4(B + (size_t)r * Nb + col, acc[i]);
       } else {
 #pragma unroll
         for (int c = 0; c < CW; ++c)
@@ -412,13 +399,13 @@ wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
   int done = kTrans ? nblk : kstart;
   auto ready = [&](int k, int j) { return j == k || (kTrans ? j >= done : j < done); };
   auto issue = [&](int k, int j, int t) {
-    float* st = wsm + (t % S) * ST;
+    float* st = wsm + (t % STAGES) * ST;
     if (j == k) {
       load_tile<BS, LDT>(st, Inv + (size_t)k * BS * BS, BS, 0, 0, BS, BS, lvec, tid);
     } else {
       const int rb = kTrans ? j : k, cb = kTrans ? k : j;
       load_tile<BS, LDT>(st, L, M, rb * BS, cb * BS, M, M, lvec, tid);
-      load_tile<W, W>(st + LT, X, Nb, j * BS, c0, M, Nb, xvec, tid);
+      load_tile<WW, WW>(st + LT, X, Nb, j * BS, c0, M, Nb, xvec, tid);
     }
     cp_commit();
   };
@@ -434,39 +421,36 @@ wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
   load_b(k0);
   int k = k0, j = k0;
   for (int t = 0; in_walk(k); ++t) {
-    // Stage t % S last held item t - S, which every thread left
+    // Stage t % STAGES last held item t - STAGES, which every thread left
     // before the barrier of item t - 1.
     enqueue(t + 1);
     cp_wait(queued - t - 1);
     __syncthreads();
     // Stages of items < t are free for every thread now.
-    enqueue(t + S);
-    float* st = wsm + (t % S) * ST;
+    enqueue(t + STAGES);
+    float* st = wsm + (t % STAGES) * ST;
     if (j != k) {
-      tile_product<kTrans, true, CW, W>(st, st + LT, r_own, c_own, acc);
+      tile_product<kTrans, true>(st, st + LT, r_own, c_own, acc);
     } else {
       float* As = st + LT;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < CW; ++c) As[row(i) * W + c_own + c] = acc[i][c];
+        for (int c = 0; c < CW; ++c) As[row(i) * WW + c_own + c] = acc[i][c];
       __syncthreads();
       float out[4][CW];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < CW; ++c) out[i][c] = 0.f;
-      tile_product<kTrans, false, CW, W>(st, As, r_own, c_own, out);
+      tile_product<kTrans, false>(st, As, r_own, c_own, out);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = k * BS + row(i);
         if (r >= M) continue;
         float* dst = X + (size_t)r * Nb + col;
         if (vec_io) {
-          if constexpr (CW == 4)
-            *reinterpret_cast<float4*>(dst) = make_float4(out[i][0], out[i][1], out[i][2], out[i][3]);
-          else
-            *reinterpret_cast<float2*>(dst) = make_float2(out[i][0], out[i][1]);
+          *reinterpret_cast<float4*>(dst) = make_float4(out[i][0], out[i][1], out[i][2], out[i][3]);
         } else {
 #pragma unroll
           for (int c = 0; c < CW; ++c)
@@ -482,319 +466,27 @@ wide_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
   }
 }
 
-template <bool kTrans, int W, int MINB, int S = STAGES>
-int launch_wide(const float* L, const float* inv, const float* B, float* X, int M, int Nb,
-                int tril_rhs, cudaStream_t s) {
-  constexpr int smem = S * (BS * LDT + BS * W) * static_cast<int>(sizeof(float));
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(wide_solve_kernel<kTrans, W, MINB, S>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr = true;
-  }
-  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const int lvec = M % 4 == 0 && al16(L) && al16(inv);
-  const int xvec = Nb % 4 == 0 && al16(B) && al16(X);
-  wide_solve_kernel<kTrans, W, MINB, S><<<(Nb + W - 1) / W, NT, smem, s>>>(L, inv, B, X, M, Nb, tril_rhs,
-                                                                  lvec, xvec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --- The pair kernel: a strip of 64 columns, two block rows at a time.
-// Every 16-byte shared load fills four registers of one thread, so shared
-// memory delivers 128 bytes a clock to at most 32 floats of operands; a
-// thread tile of R x C outputs loads R + C floats for R C FMAs, and the SM's
-// 128 FMA lanes stay fed only from 8 x 8 up.  An 8 x 8 tile on a 64-column
-// strip means 128 rows at a time: block rows a and b = a + 1 (forward) or
-// a - 1 (kTrans) share every substitution term j they both need, read once
-// for both: forward j = kstart .. a - 1 ascending, kTrans j = nblk - 1 ..
-// a + 1 descending (so that the term b needs and a does not, j = a, comes
-// last).  The items of a pair: those substitutions, then the diagonal step
-// of a (X_a = Inv_a acc_a, also written into the next stage for b's term),
-// b's term with j = a, then b's diagonal step.  128 threads, 16 thread rows
-// (rows ty + 16 i, forward, or 4 ty + i and 64 + 4 ty + i, kTrans) by 8
-// thread columns (columns 4 tx .. + 3 and 32 + 4 tx .. + 3).
-constexpr int PNT = 128;
-constexpr int PW = 64;
-constexpr int PSTAGES = 3;
-constexpr int TPF = BS + 4;                 // forward T pitch: rows of L, p contiguous
-constexpr int TPT = 2 * BS;                 // kTrans T pitch: p rows, 128 r contiguous
-constexpr int PT_FLOATS = 2 * BS * TPF;     // the T area of a stage
-constexpr int PST = PT_FLOATS + BS * PW;    // floats a stage
-static_assert(BS * TPT <= PT_FLOATS, "the kTrans T tile fits the T area");
-enum : int { kGemm = 0, kDiagA = 1, kCross = 2, kDiagB = 3 };
-
-template <bool kTrans>
-__device__ __forceinline__ int prow(int ty, int i) {
-  return kTrans ? (i < 4 ? 4 * ty + i : BS + 4 * ty + i - 4) : ty + 16 * i;
-}
-
-// Operands of p .. p + 3 for the thread's rows I0 .. I0 + NI - 1.
-template <bool kTrans, int I0, int NI>
-__device__ __forceinline__ void pair_operands(const float* Ts, const float* Ys, int ty, int tx,
-                                              int p, float (&t)[NI][4], float (&y)[4][8]) {
-  if (kTrans) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int h = I0 / 4; h < (I0 + NI) / 4; ++h) {
-        float v[4];
-        lds4(Ts + (p + q) * TPT + h * BS + 4 * ty, v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) t[4 * h + i - I0][q] = v[i];
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < NI; ++i) lds4(Ts + prow<false>(ty, I0 + i) * TPF + p, t[i]);
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float v[4], u[4];
-    lds4(Ys + (p + q) * PW + 4 * tx, v);
-    lds4(Ys + (p + q) * PW + 32 + 4 * tx, u);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      y[q][c] = v[c];
-      y[q][4 + c] = u[c];
-    }
-  }
-}
-
-// acc[i][c] (+/-)= sum_p T[row_i][p] Y[p][col_c] for i = I0 .. I0 + NI - 1,
-// p = 0..63 in order, one fmaf each; the next four p's operands are loaded
-// while the current four multiply.
-template <bool kTrans, bool kNeg, int I0, int NI>
-__device__ __forceinline__ void pair_product(const float* Ts, const float* Ys, int ty, int tx,
-                                             float (&acc)[8][8]) {
-  float t[2][NI][4], y[2][4][8];
-  pair_operands<kTrans, I0, NI>(Ts, Ys, ty, tx, 0, t[0], y[0]);
-#pragma unroll
-  for (int p = 0; p < BS; p += 4) {
-    const int b = (p / 4) % 2;
-    if (p + 4 < BS) pair_operands<kTrans, I0, NI>(Ts, Ys, ty, tx, p + 4, t[b ^ 1], y[b ^ 1]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          acc[I0 + i][c] = fmaf(kNeg ? -t[b][i][q] : t[b][i][q], y[b][q][c], acc[I0 + i][c]);
-  }
-}
-
-struct PairItem {
-  int pi, type, j;
-};
-
-template <bool kTrans, int PS = PSTAGES, int PMINB = 1>
-__global__ void __launch_bounds__(PNT, PMINB)
-pair_solve_kernel(const float* __restrict__ L, const float* __restrict__ Inv,
-                  const float* __restrict__ B, float* __restrict__ X, int M, int Nb,
-                  int tril_rhs, int lvec, int xvec) {
-  extern __shared__ __align__(16) float psm[];
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int tx = lane % 8, ty = 4 * (tid / 32) + lane / 8;
-  const int nblk = (M + BS - 1) / BS;
-  int strip = blockIdx.x;
-  if (tril_rhs && M % PW == 0) {   // the longest walks first, as in wide_solve_kernel
-    const int runs = Nb / M;
-    strip = (blockIdx.x % runs) * (M / PW) + blockIdx.x / runs;
-  }
-  const int c0 = strip * PW;
-  const int kstart = (!kTrans && tril_rhs) ? first_block(c0, PW, M, Nb) : 0;
-  const int npairs = (nblk - kstart + 1) / 2;
-  auto lcol = [&](int c) { return c < 4 ? 4 * tx + c : 32 + 4 * tx + c - 4; };
-  auto lrow = [&](int i) { return prow<kTrans>(ty, i) - (i < 4 ? 0 : BS); };
-
-  for (int r = ty; r < min(kstart * BS, M); r += 16)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (c0 + lcol(c) < Nb) X[(size_t)r * Nb + c0 + lcol(c)] = 0.f;
-
-  auto ka_of = [&](int pi) { return kTrans ? nblk - 1 - 2 * pi : kstart + 2 * pi; };
-  auto kb_of = [&](int pi) { return kTrans ? nblk - 2 - 2 * pi : kstart + 2 * pi + 1; };
-  auto b_ok = [&](int kb) { return kTrans ? kb >= 0 : kb < nblk; };
-  auto first = [&](int pi) {
-    const int ka = ka_of(pi);
-    const bool subs = kTrans ? ka + 1 < nblk : ka > kstart;
-    return subs ? PairItem{pi, kGemm, kTrans ? nblk - 1 : kstart} : PairItem{pi, kDiagA, 0};
-  };
-  auto next = [&](PairItem c) {
-    if (c.type == kGemm) {
-      const int j = kTrans ? c.j - 1 : c.j + 1;
-      const int ka = ka_of(c.pi);
-      return (kTrans ? j > ka : j < ka) ? PairItem{c.pi, kGemm, j} : PairItem{c.pi, kDiagA, 0};
-    }
-    if (c.type == kDiagA) return b_ok(kb_of(c.pi)) ? PairItem{c.pi, kCross, 0} : first(c.pi + 1);
-    if (c.type == kCross) return PairItem{c.pi, kDiagB, 0};
-    return first(c.pi + 1);
-  };
-  // Block rows written so far: forward rows < done, kTrans rows >= done.
-  int done = kTrans ? nblk : kstart;
-  auto ready = [&](PairItem c) {
-    return c.type != kGemm || (kTrans ? c.j >= done : c.j < done);
-  };
-  // The T half of block b: rows 64 .. 127 (forward) or columns 64 .. 127.
-  constexpr int HB = kTrans ? BS : BS * TPF;
-  constexpr int TP = kTrans ? TPT : TPF;
-  auto issue = [&](PairItem c, int t) {
-    float* T = psm + (t % PS) * PST;
-    const int ka = ka_of(c.pi), kb = kb_of(c.pi);
-    if (c.type == kGemm) {
-      // forward L_aj, L_bj (rows a, b; columns j); kTrans L_ja, L_jb.
-      const int j = c.j;
-      if (!kTrans) {
-        load_tile<BS, TP, PNT>(T, L, M, ka * BS, j * BS, M, M, lvec, tid);
-        load_tile<BS, TP, PNT>(T + HB, L, M, kb * BS, j * BS, M, M, lvec, tid);
-      } else {
-        load_tile<BS, TP, PNT>(T, L, M, j * BS, ka * BS, M, M, lvec, tid);
-        load_tile<BS, TP, PNT>(T + HB, L, M, j * BS, kb * BS, kb >= 0 ? M : 0, M, lvec, tid);
-      }
-      load_tile<PW, PW, PNT>(T + PT_FLOATS, X, Nb, j * BS, c0, M, Nb, xvec, tid);
-    } else if (c.type == kCross) {
-      // b's term j = a: forward L_ba, kTrans L_ab read as L_ab^T.
-      if (!kTrans) load_tile<BS, TP, PNT>(T + HB, L, M, kb * BS, ka * BS, M, M, lvec, tid);
-      else load_tile<BS, TP, PNT>(T + HB, L, M, ka * BS, kb * BS, M, M, lvec, tid);
-    } else {
-      const int k = c.type == kDiagA ? ka : kb;
-      load_tile<BS, TP, PNT>(T + (c.type == kDiagA ? 0 : HB), Inv + (size_t)k * BS * BS, BS,
-                             0, 0, BS, BS, lvec, tid);
-    }
-    cp_commit();
-  };
-
-  float acc[8][8];
-  auto load_b = [&](int pi) {
-    const int ka = ka_of(pi), kb = kb_of(pi);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = i < 4 ? ka : kb;
-      const int r = k * BS + lrow(i);
-      const bool row_ok = r >= 0 && r < M && (i < 4 || b_ok(kb));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int cc = c0 + lcol(4 * h);
-        if (row_ok && xvec && cc < Nb) {
-          float v[4];
-          lds4(B + (size_t)r * Nb + cc, v);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][4 * h + c] = v[c];
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][4 * h + c] = (row_ok && cc + c < Nb) ? B[(size_t)r * Nb + cc + c] : 0.f;
-        }
-      }
-    }
-  };
-
-  // The diagonal step of the half I0 (0: block a, 4: block b) of block row
-  // k: X_k = Inv_k acc (forward) or Inv_k^T acc (kTrans), written to X and,
-  // for block a, into `fwd` (the next stage's X area) for b's term j = a.
-  auto diag = [&](auto half, int k, float* T, float* Xs, float* fwd) {
-    constexpr int I0 = decltype(half)::value;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) Xs[lrow(I0 + i) * PW + lcol(c)] = acc[I0 + i][c];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[I0 + i][c] = 0.f;
-    pair_product<kTrans, false, I0, 4>(T, Xs, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = k * BS + lrow(I0 + i);
-      if (fwd != nullptr) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) fwd[lrow(I0 + i) * PW + lcol(c)] = acc[I0 + i][c];
-      }
-      if (r >= M) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int cc = c0 + lcol(4 * h);
-        float* dst = X + (size_t)r * Nb + cc;
-        const float* v = &acc[I0 + i][4 * h];
-        if (xvec && cc < Nb) {
-          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (cc + c < Nb) dst[c] = v[c];
-        }
-      }
-    }
-    // X_k is written for every thread's later cp.async of it.
-    __syncthreads();
-  };
-
-  PairItem cur = first(0), q = cur;
-  int queued = 0;
-  auto enqueue = [&](int limit) {
-    while (queued < limit && q.pi < npairs && ready(q)) {
-      issue(q, queued++);
-      q = next(q);
-    }
-  };
-  if (npairs > 0) load_b(0);
-  for (int t = 0; cur.pi < npairs; ++t) {
-    enqueue(t + 1);
-    cp_wait(queued - t - 1);
-    __syncthreads();
-    enqueue(t + PS);
-    float* T = psm + (t % PS) * PST;
-    float* Xs = T + PT_FLOATS;
-    const int ka = ka_of(cur.pi), kb = kb_of(cur.pi);
-    if (cur.type == kGemm) {
-      pair_product<kTrans, true, 0, 8>(T, Xs, ty, tx, acc);
-    } else if (cur.type == kCross) {
-      pair_product<kTrans, true, 4, 4>(T, Xs, ty, tx, acc);
-    } else if (cur.type == kDiagA) {
-      float* fwd = b_ok(kb) ? psm + ((t + 1) % PS) * PST + PT_FLOATS : nullptr;
-      diag(std::integral_constant<int, 0>(), ka, T, Xs, fwd);
-      done = kTrans ? ka : ka + 1;
-      if (!b_ok(kb) && cur.pi + 1 < npairs) load_b(cur.pi + 1);
-    } else {
-      diag(std::integral_constant<int, 4>(), kb, T, Xs, nullptr);
-      done = kTrans ? kb : kb + 1;
-      if (cur.pi + 1 < npairs) load_b(cur.pi + 1);
-    }
-    cur = next(cur);
-  }
-}
-
-template <bool kTrans, int PS = PSTAGES, int PMINB = 1>
-int launch_pair(const float* L, const float* inv, const float* B, float* X, int M, int Nb,
-                int tril_rhs, cudaStream_t s) {
-  constexpr int smem = PS * PST * static_cast<int>(sizeof(float));
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(pair_solve_kernel<kTrans, PS, PMINB>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr = true;
-  }
-  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const int lvec = M % 4 == 0 && al16(L) && al16(inv);
-  const int xvec = Nb % 4 == 0 && al16(B) && al16(X);
-  pair_solve_kernel<kTrans, PS, PMINB><<<(Nb + PW - 1) / PW, PNT, smem, s>>>(L, inv, B, X, M, Nb,
-                                                                  tril_rhs, lvec, xvec);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <bool kTrans>
 int solve(const float* L, const float* inv, const float* B, float* X, int M, int Nb,
           int unit_rhs, int tril_rhs, cudaStream_t s) {
-  int route = g_route;
-  if (route == 0) route = (!unit_rhs && Nb >= kWideMinNb) ? 3 : 1;
-  if (unit_rhs) route = 1;
-  if (route == 2) return launch_wide<kTrans, 32, 2>(L, inv, B, X, M, Nb, tril_rhs, s);
-  if (route == 3) return launch_wide<kTrans, 64, 2>(L, inv, B, X, M, Nb, tril_rhs, s);
-  if (route == 4) return launch_pair<kTrans>(L, inv, B, X, M, Nb, tril_rhs, s);
-  solve_kernel<kTrans><<<(Nb + TW - 1) / TW, NT, 0, s>>>(L, inv, B, X, M, Nb, unit_rhs,
-                                                         tril_rhs);
+  if (unit_rhs || Nb < kWideMinNb) {
+    solve_kernel<kTrans><<<(Nb + TW - 1) / TW, NT, 0, s>>>(L, inv, B, X, M, Nb, unit_rhs,
+                                                           tril_rhs);
+    return static_cast<int>(cudaGetLastError());
+  }
+  constexpr int smem = STAGES * (BS * LDT + BS * WW) * static_cast<int>(sizeof(float));
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(wide_solve_kernel<kTrans>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int lvec = M % 4 == 0 && al16(L) && al16(inv);
+  const int xvec = Nb % 4 == 0 && al16(B) && al16(X);
+  wide_solve_kernel<kTrans><<<(Nb + WW - 1) / WW, NT, smem, s>>>(L, inv, B, X, M, Nb, tril_rhs,
+                                                                  lvec, xvec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -809,14 +501,6 @@ extern "C" int mgp_diag_inv(const void* L, void* inv, int M, void* stream) {
     diag_inv_kernel<<<(M + BS - 1) / BS, BS, 0, s>>>(static_cast<const float*>(L),
                                                      static_cast<float*>(inv), M);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The solves' kernel for timing: 0 the shape rule, 1 narrow, 2 wide with
-// 32-column strips, 3 wide with 64, 4 the pair kernel (the inverse always
-// runs narrow).
-extern "C" int mgp_trsm_route(int route) {
-  g_route = route;
-  return 0;
 }
 
 // L [M, M] lower (upper triangle ignored), B [M, Nb], X [M, Nb], inv

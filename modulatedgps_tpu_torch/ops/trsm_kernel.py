@@ -6,7 +6,8 @@ through solve_triangular_blocked / solve_triangular_large and
 linalg._pallas_trinv) and _trsm_t_kernel (the same calls with
 ``trans=True``).  The kernels are csrc/trsm.cu.  On the H100 the forward
 substitution of an inverse is bound by its sequential walk over block rows;
-a solve with a wide B by the rate of its fp32 FMAs.  One launch inverts the
+a solve with a wide B by the shared-memory bandwidth that feeds its fp32
+FMAs.  One launch inverts the
 64x64 diagonal blocks, and a second gives each column strip of B its own
 CUDA block, which walks the block rows in order (the TPU's fori_loop over row
 blocks) with fp32 FMAs only: downwards for L^-1 B, upwards for L^-T B.  The
@@ -16,9 +17,10 @@ through a cp.async ring: a shape rule between two kernels that give the same
 bits.  For the inverse (B = I, ``B=None``) a strip skips the block rows above
 its diagonal, and so does the forward solve with ``tril_rhs=True`` (each run
 of M columns of B lower-triangular, as the unwhitened KL's [M, K*M] right
-side), with the same result.  A caller holding the Cholesky's diagonal-block inverses
-(chol_kernel.cholesky_factor, the JAX package's ``_trsm_pallas_raw(L, Inv,
-B)``) passes them as ``inv`` and the first launch is skipped.
+side), with the same result.  A caller holding the Cholesky's
+diagonal-block inverses (chol_kernel.cholesky_factor, the JAX package's
+``_trsm_pallas_raw(L, Inv, B)``) passes them as ``inv`` and the first
+launch is skipped.
 
 ``trsm_lower`` and ``trsm_lower_t`` take the plain version only for CPU
 tensors; for CUDA tensors they launch the kernel or raise.  Every call that
@@ -34,7 +36,7 @@ __all__ = ["trsm_lower", "trsm_lower_plain", "trsm_lower_t",
            "trsm_lower_t_plain", "check_launch_args", "BLOCK", "WIDE_MIN_NB"]
 
 BLOCK = 64   # diagonal block size of csrc/trsm.cu
-WIDE_MIN_NB = 4096   # csrc/trsm.cu's kWideMinNb: a B this wide takes the wide kernel
+WIDE_MIN_NB = 4096   # csrc/trsm.cu's kWideMinNb: from this width B runs wide
 
 
 def trsm_lower_plain(L, B=None):
