@@ -8,8 +8,9 @@ once on one NVIDIA card.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
 builds both, times the Cholesky, the tril forward and backward kernels, the
-TRSM (#2, #4) and the fused q_sqrt quadratic (#17) of the two in turns on
-the same inputs and compares their outputs, and prints no last line.
+TRSM (#2, #4), the pullback's products (#10/#11) and the fused q_sqrt
+quadratic (#17) of the two in turns on the same inputs and compares their
+outputs, and prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -22,7 +23,9 @@ Phases, each printing its own lines:
      with NaN above L's diagonal;
      the TRSM (#2, #4) on wide right sides (csrc/trsm.cu's wide kernel) at
      ragged shapes, [4096, 8192] and [4096, 32768], and #2 on the KL's
-     lower-triangular right side with and without tril_rhs (equal);
+     lower-triangular right side with and without tril_rhs (equal); on
+     narrow ones and the inverse (the wavefront kernel) at ragged shapes,
+     M=1 and [4096, 8]; the pullback's split pass bit for bit;
      the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
@@ -297,6 +300,7 @@ def phase_device_and_build(native):
 
 
 def phase_kernels():
+    from modulatedgps_tpu_torch import _native
     from modulatedgps_tpu_torch.ops import (kxz_kernel, tril_kernel, trimm_kernel,
                                             trsm_kernel)
     from modulatedgps_tpu_torch.ops.linalg import cholesky
@@ -528,6 +532,22 @@ def phase_kernels():
                   + (f"; {upper} non-zero above the diagonal"
                      if "tril_out" in name else ""))
             errs[name] = err
+        # The split pass (csrc/trimm.cu's first launch), read back from the
+        # workspace of a direct call: bit-equal to its plain version.
+        lib = _native.library()
+        for nt, (A, B) in ((False, (Linvg, Lbarg)), (True, (S, Linvg))):
+            ws = torch.zeros(trimm_kernel.workspace_shape(M),
+                             dtype=torch.bfloat16, device=dev)
+            C = torch.empty(M, M, device=dev)
+            args = (A.data_ptr(), B.data_ptr(), C.data_ptr(), ws.data_ptr(), M)
+            entry = lib.mgp_tri_nt if nt else lib.mgp_tri_tt
+            _native.check(entry(*args, *(() if nt else (0,)),
+                                _native.stream_ptr(dev)), "trimm split")
+            torch.cuda.synchronize()
+            want = trimm_kernel.split_operands_plain(A, B, nt=nt)
+            check(torch.equal(ws.view(torch.int16), want.view(torch.int16)),
+                  f"{'tri_nt' if nt else 'tri_tt'} split pass {label} M={M}: hi "
+                  f"and lo copies bit-equal to split_operands_plain")
         got = trimm_kernel.chol_pullback_structured(Lg, Linvg, Lbarg)
         torch.cuda.synchronize()
         want = trimm_kernel.chol_pullback_dense(L.double(), Linv.double(),
@@ -561,20 +581,24 @@ def phase_kernels():
             f"{plain_nt:.4f} ms, fp32 matmul {lib_nt:.4f} ms")
         log(f"  chol pullback M={M}: structured {ms_pb:.4f} ms, dense fp32 "
             f"{dense_pb:.4f} ms")
+        # Bytes: the operands and C, and the split's bf16 workspace written
+        # once and read once.
         tri = 4 * M * (M + 1) // 2
+        ws = 2 * 2 * math.prod(trimm_kernel.workspace_shape(M))
         return {"tri_tt_matmul": {
                     "max_abs_err": errs["tri_tt_matmul"], "ms": ms_tt,
                     "plain_ms": plain_tt,
-                    **bound(2 * tri + 4 * M * M, 6 * macs_tt, "bf16"),
+                    **bound(2 * tri + 4 * M * M + ws, 6 * macs_tt, "bf16"),
                     "library_ms": lib_tt},
                 "tri_nt_matmul": {
                     "max_abs_err": errs["tri_nt_matmul"], "ms": ms_nt,
                     "plain_ms": plain_nt,
-                    **bound(tri + 8 * M * M, 6 * macs_nt, "bf16"),
+                    **bound(tri + 8 * M * M + ws, 6 * macs_nt, "bf16"),
                     "library_ms": lib_nt}}
 
     trimm_case("ragged", 200, False)
     trimm_case("ragged", 197, False)
+    trimm_case("ragged", 600, False)
     rows.update(trimm_case("main", M_FULL, True))
 
     # --- tril_fwd_f32: rtol and atol 1e-4 of the largest magnitude.  The
@@ -619,6 +643,7 @@ def phase_kernels():
     rows.update(kl_adam_rows(rand, g))
     rows.update(trsm_t_tril_w_rows(rand, spd_chol))
     trsm_wide_rows(rand, spd_chol)
+    trsm_wave_rows(rand, spd_chol)
     rows.update(chol_quad_rows(rand))
     return rows
 
@@ -796,6 +821,65 @@ def trsm_wide_rows(rand, spd_chol):
         case(name, "main", M_FULL, K_EXPERTS * M_FULL, True)
     case("trsm_lower", "main", M_FULL, K_EXPERTS * M_FULL, True,
          tril_K=K_EXPERTS)
+
+
+def trsm_wave_rows(rand, spd_chol):
+    """Phase 2's rows for csrc/trsm.cu's wavefront kernel, which takes the
+    inverse and every right side narrower than trsm_kernel.WIDE_MIN_NB, both
+    ways: ragged M and Nb (8-column strips below NARROW_MAX_NB, 64-column
+    ones above, an Nb just under WIDE_MIN_NB), M=1, the inverse at a ragged
+    M, and the main path's [4096, 8] (q_mu's solve and its pullback), all
+    with NaN above L's diagonal.  Gate: trsm_case's residual rule, the
+    residual max|op(L) X - B| within 3x of the plain version's (+ a few ulps
+    of max|B|); each timed row prints a JSON line with its bound."""
+    from modulatedgps_tpu_torch.ops import trsm_kernel
+    dev = torch.device("cuda")
+    ops = {"trsm_lower": (trsm_kernel.trsm_lower, trsm_kernel.trsm_lower_plain,
+                          lambda L: L),
+           "trsm_lower_t": (trsm_kernel.trsm_lower_t,
+                            trsm_kernel.trsm_lower_t_plain, lambda L: L.T)}
+
+    def case(name, label, M, Nb, record):
+        fn, plain, op = ops[name]
+        L = spd_chol(M) if M > 1 else torch.full((1, 1), 0.7, device=dev)
+        L_nan = (L + nan_above(1, M, dev)[0]).contiguous()
+        B = None if Nb is None else rand(M, Nb)
+        rhs = torch.eye(M, device=dev) if B is None else B
+        got = fn(L_nan, B)
+        torch.cuda.synchronize()
+        want = plain(L_nan, rhs)
+        res_k = float((op(L) @ got - rhs).abs().max())
+        res_p = float((op(L) @ want - rhs).abs().max())
+        floor = 1e-6 * float(rhs.abs().max())
+        err = float((got - want).abs().max())
+        check(res_k <= 3 * res_p + floor and finite(got),
+              f"{name} {label} M={M} rhs={'I' if B is None else Nb}: residual "
+              f"kernel {res_k:.3e} vs plain {res_p:.3e} (<= 3x + {floor:.1e}), "
+              f"max_abs_err {err:.3e}, NaN above L's diagonal")
+        if not record:
+            return
+        Lop = op(L).contiguous()
+        times = cuda_ms([lambda: fn(L_nan, B), lambda: plain(L_nan, B),
+                         lambda: torch.linalg.solve_triangular(
+                             Lop, B, upper=name.endswith("_t"))], 10)
+        # M^2 Nb / 2 multiply-adds, against L's triangle, B and X.
+        row = {"max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+               **bound(4 * (M * (M + 1) // 2 + 2 * M * Nb), M * M * Nb, "fp32"),
+               "library_ms": times[2]}
+        log(f"  {name} M={M} Nb={Nb}: kernel {times[0]:.4f} ms, plain "
+            f"{times[1]:.4f} ms, solve_triangular {times[2]:.4f} ms")
+        log(f"  {name} M={M} Nb={Nb} row: {json.dumps(row)}")
+
+    under = trsm_kernel.WIDE_MIN_NB - 1
+    for name in ops:
+        for M in (1, 65, 200):
+            for Nb in (1, 8, 77):
+                case(name, "ragged", M, Nb, False)
+        case(name, "ragged, just under the wide kernel", 130, under, False)
+    for M in (1, 65, 452):
+        case("trsm_lower", "ragged inverse", M, None, False)
+    for name in ops:
+        case(name, "main", M_FULL, K_EXPERTS, True)
 
 
 def bwd_check(name, label, M, N, K, got, want):
@@ -1359,13 +1443,13 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("tril_da_kernel<true", "tril dA (#9)"),
             ("tril_dl_kernel<false", "tril dL (#6)"),
             ("tril_da_kernel<false", "tril dA (#7)"),
-            ("tri_tt_kernel", "pullback tt (#10)"),
-            ("tri_nt_kernel", "pullback nt (#11)"),
+            ("tri_mm_kernel", "pullback products tt / nt (#10/#11)"),
+            ("trimm_split_kernel", "pullback split (#10/#11)"),
             ("kxz_kernel", "kxz (#1)"),
             ("wide_solve_kernel<true", "trsm transposed, wide B (#4)"),
             ("wide_solve_kernel<false", "trsm, wide B (#2)"),
-            ("solve_kernel<true", "trsm transposed (#4)"),
-            ("solve_kernel", "trsm (#2)"),
+            ("wave_solve_kernel<true", "trsm transposed, wavefront (#4)"),
+            ("wave_solve_kernel<false", "trsm, wavefront (#2)"),
             # the main paths' solves all take the Cholesky's block inverses,
             # so diag_inv_kernel runs only as the factor's last launch
             ("diag_inv_kernel", "cholesky (#15/#16)"),
@@ -2083,18 +2167,19 @@ def phase_joint_grad_reference(pt, dev="cuda", M=M_REF, N=N_GRID_REF,
 
 def phase_against(parent: str) -> None:
     """The Cholesky (#15/#16), the tril forward (#3/#5), the tril backward
-    (#6-#9), the TRSM (#2 inverse and wide, #4) and the fused q_sqrt
-    quadratic (#17) of this checkout against those of another one
+    (#6-#9), the TRSM (#2: the inverse, [4096, 8] and [4096, 8192]; #4 at
+    both widths), the Cholesky pullback's products (#10/#11) and the fused
+    q_sqrt quadratic (#17) of this checkout against those of another one
     (``parent``, e.g. a checkout of the parent commit), both packages
     loaded in this process: CUDA-event medians at the main shapes, timed
     in turns (parent, this, this, parent) over the same inputs, the
     factors, the forwards' and the solves' outputs compared bit for bit,
-    the backwards' within 1e-3 of the parent's maximum and #17's within
-    rtol 1e-4."""
+    the backwards' within 1e-3 of the parent's maximum, #10/#11 within
+    1e-4 of it and #17's within rtol 1e-4."""
     import importlib
     import importlib.util
     from modulatedgps_tpu_torch.ops import (chol_kernel, quad_kernel, tril_kernel,
-                                            trsm_kernel)
+                                            trimm_kernel, trsm_kernel)
     root = Path(parent).resolve() / "modulatedgps_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         "parent_port", root / "__init__.py",
@@ -2173,9 +2258,14 @@ def phase_against(parent: str) -> None:
     L, Inv = chol_kernel.cholesky_factor(north_star_kmm(M, PRED_SE))
     L_nan = L + nan_above(1, M, dev)[0]
     B = torch.randn(M, BATCH, generator=g).to(dev)
+    Bq = torch.randn(M, K_EXPERTS, generator=g).to(dev)   # q_mu's width
     for what, fn, pfn, args, kw in (
             ("trsm_lower inverse", trsm_kernel.trsm_lower, ptrsm.trsm_lower,
              (L_nan,), {"inv": Inv}),
+            (f"trsm_lower [{M}, {K_EXPERTS}]", trsm_kernel.trsm_lower,
+             ptrsm.trsm_lower, (L_nan, Bq), {"inv": Inv}),
+            (f"trsm_lower_t [{M}, {K_EXPERTS}]", trsm_kernel.trsm_lower_t,
+             ptrsm.trsm_lower_t, (L_nan, Bq), {"inv": Inv}),
             (f"trsm_lower [{M}, {BATCH}]", trsm_kernel.trsm_lower,
              ptrsm.trsm_lower, (L_nan, B), {"inv": Inv}),
             (f"trsm_lower_t [{M}, {BATCH}]", trsm_kernel.trsm_lower_t,
@@ -2185,6 +2275,30 @@ def phase_against(parent: str) -> None:
         check(torch.equal(got, want), f"{what}: bit-equal to the parent's "
               f"(max |this - parent| {float((got - want).abs().max()):.3e})")
         turns(what, lambda: pfn(*args, **kw), lambda: fn(*args, **kw), 5)
+        del got, want
+    # The Cholesky pullback's products (#10, #11): within 1e-4 of the
+    # parent's largest magnitude (the summation order may change), with
+    # garbage and NaN above the triangular operands' diagonals.
+    ptrimm = importlib.import_module("parent_port.ops.trimm_kernel")
+    Linv = trsm_kernel.trsm_lower(L, inv=Inv)
+    Lbar = torch.tril(torch.randn(M, M, generator=g).to(dev))
+    S = torch.randn(M, M, generator=g).to(dev)
+    nan = nan_above(1, M, dev)[0]
+    Lg, Linvg, Lbarg = ((X + nan).contiguous() for X in (L, Linv, Lbar))
+    for what, call in (
+            ("tri_tt_matmul",
+             lambda t: t.tri_tt_matmul(Linvg, Lbarg, tril_out=False)),
+            ("tri_tt_matmul tril_out",
+             lambda t: t.tri_tt_matmul(Lg, Lbarg, tril_out=True)),
+            ("tri_nt_matmul", lambda t: t.tri_nt_matmul(S, Linvg))):
+        got, want = call(trimm_kernel), call(ptrimm)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(diff <= 1e-4 * scale and finite(got),
+              f"{what} M={M}: max |this - parent| {diff:.3e} of max {scale:.3e} "
+              f"(1e-4)")
+        turns(f"{what} M={M}", lambda: call(ptrimm), lambda: call(trimm_kernel), 10)
         del got, want
     S16 = (torch.eye(M, device=dev) + 0.05 * torch.randn(
         K_EXPERTS, M, M, generator=g).to(dev)

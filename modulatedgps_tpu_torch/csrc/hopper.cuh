@@ -1,7 +1,8 @@
 // Hopper plumbing shared by the TMA / wgmma kernels (tril_fwd.cu,
-// tril_bwd.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
-// for the 128-byte swizzle, bf16 wgmma with fp32 accumulators, the zeroing
-// of a tile's strictly-upper entries in shared memory, and libcuda's
+// tril_bwd.cu, quad.cu, trimm.cu): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors for the 128-byte swizzle, bf16 wgmma with fp32
+// accumulators, the register split of a producer / consumer block, the
+// zeroing of a tile's strictly-upper entries in shared memory, and libcuda's
 // tensor-map encoder (found with dlopen, so no link against it).
 //
 // Layout: a TMA box of R rows of 64 bf16 (128-byte rows) lands in shared
@@ -19,9 +20,24 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-#include "tiles.cuh"
-
 namespace mgp {
+
+// Eight bf16 values as raw bits (bf16 zero is all-zero bits).
+union Pack8 {
+  uint4 u;
+  unsigned short s[8];
+};
+
+// The register split of a block of one producer warpgroup (one thread of
+// it issues the TMA loads) and two consumer warpgroups of 128 accumulators
+// a thread: (232 - 168) x 256 = (168 - 40) x 128.  At the 168 a thread of
+// 384 gets at launch, ptxas serialized every wgmma.
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+}
 
 constexpr int BOX = 64;             // 64 bf16: one 128-byte swizzled row
 constexpr int CHUNK = BOX * BOX * 2;  // bytes of a 64 x 64 box (8 KB)

@@ -82,17 +82,6 @@ constexpr int STAGE_BYTES = XBYTES + BW * 128;   // then W's
 constexpr int GSLOT = BW * 4;              // a stage's G slice (<= BW f32)
 constexpr size_t SMEM_BYTES = STAGES * (STAGE_BYTES + GSLOT) + 1024 + 2 * STAGES * 8;
 
-// The register split: the producer's warpgroup (one thread of it issues
-// the TMA loads) gives registers back, the two consumer warpgroups take
-// them (128 accumulators a thread, plus a stage's fragments and addresses);
-// (232 - 168) x 256 = (168 - 40) x 128.
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-}
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-}
-
 // bf16(f32(v) * g) of a pair of bf16, scaled by (g0, g1).
 __device__ __forceinline__ uint32_t scale2(uint32_t v, float g0, float g1) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);

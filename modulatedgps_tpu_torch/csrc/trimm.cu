@@ -15,41 +15,54 @@
 // tensor cores with fp32 accumulators held over the whole contraction, the
 // arithmetic of the TPU's _dot3 (HIGH class, ~2^-16 relative).
 //
-// Bound on the H100: tensor-core math.  At M=4096 one pullback is ~M^3 =
-// 6.9e10 useful multiply-adds, times 3 passes, against 3 x 64 MB of
-// operands and results.  Only the band is visited: a block computing the
-// output tile (i-tile, j-tile) walks k from max(i0, j0) (tt) or j0 (nt) to
-// M, and the lower-triangular operands have their upper entries zeroed as
-// they are staged, so garbage above a diagonal never enters a sum.  With
-// lower_out (tt only) the blocks above the diagonal write zeros and the
-// diagonal blocks zero their upper part: the result is exactly tril(A^T B).
-// Loads of the next step are issued into registers before the current
-// step's MMAs; masking and splitting happen at the store to shared memory.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include "tiles.cuh"
-
-using namespace nvcuda;
+// Bound on the H100: tensor-core math.  At M=4096 tt's band is ~M^3 / 3 =
+// 2.3e10 useful multiply-adds, nt's ~M^3 / 2, times 3 passes (0.139 and
+// 0.209 ms at the 989 TFLOP/s bf16 peak), against ~0.3-0.4 GB of traffic
+// with the split below (~0.12 ms).  Design, two launches:
+//   (a) trimm_split_kernel writes the hi and lo bf16 copies of both operands,
+//       masked (tril(B), tril(A) for tt: entries above the diagonal are
+//       stored as 0, never multiplied, so NaN there never enters a sum) and,
+//       for nt's dense A, transposed (At[k][i] = A[i][k]), into a workspace
+//       [4, M, ld] (A hi, A lo, B hi, B lo; ld = M rounded up to 8 for TMA's
+//       16-byte row strides).  Both products then read two MN-major
+//       operands, X[k][i] and Y[k][j], as they lie, the tril forward's
+//       situation (tril_product.cuh).
+//   (b) tri_mm_kernel: a persistent grid of one CTA per SM, 384 threads: one
+//       thread of a producer warpgroup issues TMA loads (128-byte swizzle)
+//       into a ring of four 48 KB stages (32 k-rows of X hi / lo for 128 i
+//       and Y hi / lo for 256 j) with full / empty mbarriers; two consumer
+//       warpgroups (setmaxnreg 40 / 232, no branch around wgmma) each run
+//       three chains of wgmma m64n256k16 (hh, hl, lh) into one 64 x 256
+//       accumulator of the 128 x 256 output tile.  The tile at (i0, j0)
+//       walks k from max(i0, j0) (tt) or j0 (nt): the band only, the terms
+//       skipped being exact zeros of the masked operands.  Tiles are walked
+//       longest band first (by the k they start from), in a snake over the
+//       CTAs.  With lower_out (tt only) the tiles wholly above the diagonal
+//       are not work: the producer warpgroup's three idle warps store their
+//       zeros while the product runs, and the tiles that straddle the
+//       diagonal store 0 where i < j, so C is exactly tril(A^T B).
+//   The legacy-wmma kernel this replaced (128 x 128 tiles, a register
+//   stage, the split at every store to shared memory, 1024 CTAs) reached
+//   ~16% of the bound (PERF.md).
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BT = 128;        // output tile edge
-constexpr int BK = 32;         // contraction depth per step
-constexpr int NTHR = 256;      // 8 warps: 2 along i x 4 along j
-constexpr int WR = 64;
-constexpr int WC = 32;
-constexpr int FR = WR / 16;
-constexpr int FC = WC / 16;
-constexpr int LDW = BT + 8;    // pitch of a [BK][BT] tile
-constexpr int LDT = BK + 8;    // pitch of a [BT][BK] tile
-static_assert(BT / WR * (BT / WC) == NTHR / 32, "warp grid covers the tile");
+using namespace mgp;
 
-// A^T (tt) is read as a column-major matrix_a, A (nt) as a row-major one.
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragAN = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+constexpr int BI = 128;                    // i rows of a tile: 64 a consumer warpgroup
+constexpr int BJ = 256;                    // j columns of a tile
+constexpr int BK = 32;                     // k rows a stage
+constexpr int STAGES = 4;
+constexpr int KBOX = BK * 128;             // a TMA box: 32 rows of 64 bf16 (4 KB)
+constexpr int XB = BI / BOX, YB = BJ / BOX;           // boxes of X and of Y (2, 4)
+constexpr int X_HI = 0, X_LO = XB * KBOX, Y_HI = 2 * XB * KBOX, Y_LO = Y_HI + YB * KBOX;
+constexpr int STAGE_BYTES = 2 * (XB + YB) * KBOX;     // 48 KB
+constexpr int NCONS = 256;                 // two consumer warpgroups
+constexpr int NTHR = NCONS + 128;          // and the producer's warpgroup
+constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+
+enum Mode { kTT = 0, kTTLower = 1, kNT = 2 };
 
 // (hi, lo) bf16 bits of one fp32 value.
 __device__ __forceinline__ void split1(float x, unsigned short& hi, unsigned short& lo) {
@@ -58,188 +71,275 @@ __device__ __forceinline__ void split1(float x, unsigned short& hi, unsigned sho
   lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __uint_as_float(bits & 0xFFFF0000u)));
 }
 
-// A [ROWS][COLS] fp32 tile of a row-major [n, n] matrix, held in registers
-// as 4-float chunks between its load and its split into shared memory.
-template <int ROWS, int COLS>
-struct Tile {
-  static constexpr int CHUNKS = ROWS * COLS / 4 / NTHR;
-  static constexpr int LD = COLS + 8;
-  float4 r[CHUNKS];
-  static_assert(CHUNKS * 4 * NTHR == ROWS * COLS, "chunks cover the tile");
+// One operand of the split: source [M, M] fp32 row-major; hi / lo [M, ld].
+struct SplitArg {
+  const float* src;
+  unsigned short* hi;
+  unsigned short* lo;
+  int lower;   // store source entries above the diagonal (c > r) as 0
+  int trans;   // out[c][r] = split(src[r][c])
+};
 
-  __device__ __forceinline__ void fetch(const float* __restrict__ X, int n, int row0,
-                                        int col0, bool vec) {
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int e = threadIdx.x + c * NTHR;
-      r[c] = mgp::load_row4(X, row0 + e / (COLS / 4), col0 + (e % (COLS / 4)) * 4, n, vec);
+// A 32 x 32 tile of the source per block of 32 x 8 threads, through shared
+// memory so that both its reads and its (transposed) writes run along rows;
+// blockIdx.z picks the operand.  Columns ld > M of the copies stay unwritten
+// (TMA's maps end at M).
+__global__ void __launch_bounds__(256)
+trimm_split_kernel(SplitArg a0, SplitArg a1, int M, int ld) {
+  __shared__ float tile[32][33];
+  const SplitArg a = blockIdx.z ? a1 : a0;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int y = ty; y < 32; y += 8) {
+    const int r = r0 + y, c = c0 + tx;
+    float v = 0.f;
+    if (r < M && c < M && !(a.lower && c > r)) v = a.src[(size_t)r * M + c];
+    tile[y][tx] = v;
+  }
+  __syncthreads();
+  for (int y = ty; y < 32; y += 8) {
+    // Output row o, column q: source (o, q), or (q, o) transposed.
+    const int o = (a.trans ? c0 : r0) + y, q = (a.trans ? r0 : c0) + tx;
+    if (o >= M || q >= M) continue;
+    unsigned short h, l;
+    split1(a.trans ? tile[tx][y] : tile[y][tx], h, l);
+    a.hi[(size_t)o * ld + q] = h;
+    a.lo[(size_t)o * ld + q] = l;
+  }
+}
+
+// The work tiles (i-tile a of BI rows, j-tile b of BJ columns), longest band
+// first: level d = kb / 128 for the k row kb the tile starts from (tt:
+// max(128 a, 256 b); nt: 256 b), each level's tiles in a fixed order.
+struct Tiles {
+  int ni, nj, mode;
+  __device__ int count(int d) const {
+    const int lo = d < ni ? min(d / 2, nj - 1) + 1 : 0;   // a = d, 2 b <= d
+    const int hi = (d % 2 == 0 && d / 2 < nj) ? min(d, ni) : 0;   // b = d / 2, a < d
+    if (mode == kTTLower) return lo;
+    if (mode == kTT) return lo + hi;
+    return (d % 2 == 0 && d / 2 < nj) ? ni : 0;
+  }
+  __device__ void coords(int d, int idx, int& a, int& b) const {
+    const int lo = d < ni ? min(d / 2, nj - 1) + 1 : 0;
+    if (mode == kNT) {
+      a = idx;
+      b = d / 2;
+    } else if (idx < lo) {
+      a = d;
+      b = idx;
+    } else {
+      a = idx - lo;
+      b = d / 2;
     }
   }
+  __device__ int kb(int a, int b) const { return mode == kNT ? BJ * b : max(BI * a, BJ * b); }
+};
 
-  // Splits the held chunks into hi and lo [ROWS][LD] tiles; with lower,
-  // entries above the matrix's diagonal (row < col) are staged as 0.
-  __device__ __forceinline__ void store(__nv_bfloat16* hi, __nv_bfloat16* lo, int row0,
-                                        int col0, bool lower) const {
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int e = threadIdx.x + c * NTHR;
-      const int rr = e / (COLS / 4), cc = (e % (COLS / 4)) * 4;
-      const float v[4] = {r[c].x, r[c].y, r[c].z, r[c].w};
-      unsigned short h[4], l[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split1((lower && row0 + rr < col0 + cc + q) ? 0.f : v[q], h[q], l[q]);
-      *reinterpret_cast<uint2*>(&hi[rr * LD + cc]) =
-          make_uint2(h[0] | (unsigned)h[1] << 16, h[2] | (unsigned)h[3] << 16);
-      *reinterpret_cast<uint2*>(&lo[rr * LD + cc]) =
-          make_uint2(l[0] | (unsigned)l[1] << 16, l[2] | (unsigned)l[3] << 16);
-    }
+// Walks the list for one CTA's non-decreasing tile numbers.
+struct Cursor {
+  int d = 0, base = 0;
+  __device__ bool at(const Tiles& tl, int t, int& a, int& b) {
+    for (; d < tl.ni + 2 * tl.nj; base += tl.count(d), ++d)
+      if (t < base + tl.count(d)) {
+        tl.coords(d, t - base, a, b);
+        return true;
+      }
+    return false;
   }
 };
 
-// acc += a * b over one 16-deep slice in 3 passes, ah*bh + ah*bl + al*bh.
-// The warp's i-th 16-row fragment of a starts a_step * 16 elements after
-// the first; b's j-th 16-column fragment 16 elements after the first.
-template <typename FragA>
-__device__ __forceinline__ void mma3(mgp::Acc (&acc)[FR][FC], const __nv_bfloat16* ah,
-                                     const __nv_bfloat16* al, int a_step, int lda,
-                                     const __nv_bfloat16* bh, const __nv_bfloat16* bl,
-                                     int ldb) {
-  FragB fbh[FC], fbl[FC];
-#pragma unroll
-  for (int j = 0; j < FC; ++j) {
-    wmma::load_matrix_sync(fbh[j], bh + j * 16, ldb);
-    wmma::load_matrix_sync(fbl[j], bl + j * 16, ldb);
-  }
-#pragma unroll
-  for (int i = 0; i < FR; ++i) {
-    FragA fah, fal;
-    wmma::load_matrix_sync(fah, ah + i * 16 * a_step, lda);
-    wmma::load_matrix_sync(fal, al + i * 16 * a_step, lda);
-#pragma unroll
-    for (int j = 0; j < FC; ++j) {
-      wmma::mma_sync(acc[i][j], fah, fbh[j], acc[i][j]);
-      wmma::mma_sync(acc[i][j], fah, fbl[j], acc[i][j]);
-      wmma::mma_sync(acc[i][j], fal, fbh[j], acc[i][j]);
-    }
-  }
+// Tile `it` of CTA b of G: a snake, so a CTA given a long tile in one wave
+// gets a short one in the next.
+__device__ __forceinline__ int snake(int it) {
+  return it * gridDim.x + ((it & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-__global__ void __launch_bounds__(NTHR)
-tri_tt_kernel(const float* __restrict__ A, const float* __restrict__ B,
-              float* __restrict__ C, int M, int lower_out) {
-  __shared__ __align__(32) __nv_bfloat16 Ah[BK * LDW], Al[BK * LDW];   // [k][i]
-  __shared__ __align__(32) __nv_bfloat16 Bh[BK * LDW], Bl[BK * LDW];   // [k][j]
-  __shared__ __align__(32) float stage[NTHR / 32][16 * 16];
+__global__ void __launch_bounds__(NTHR, 1)
+tri_mm_kernel(const __grid_constant__ CUtensorMap mapXh, const __grid_constant__ CUtensorMap mapXl,
+              const __grid_constant__ CUtensorMap mapYh, const __grid_constant__ CUtensorMap mapYl,
+              float* __restrict__ C, int M, int mode) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x;
+  const Tiles tl{(M + BI - 1) / BI, (M + BJ - 1) / BJ, mode};
 
-  const int j0 = blockIdx.x * BT;
-  const int i0 = blockIdx.y * BT;
-  if (lower_out && i0 < j0) {
-    mgp::zero_tile(C, M, M, M, i0, j0, BT);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);     // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NCONS) {
+    producer_regs();
+    if (tid == NCONS) {            // one thread issues the TMA loads
+      Cursor cur;
+      int stage = 0;
+      uint32_t phase = 0;
+      int a, b;
+      for (int it = 0; cur.at(tl, snake(it), a, b); ++it) {
+        const int i0 = a * BI, j0 = b * BJ;
+        for (int k0 = tl.kb(a, b); k0 < M; k0 += BK) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          uint8_t* st = smem + stage * STAGE_BYTES;
+          for (int h = 0; h < XB; ++h) {
+            tma_load_2d(st + X_HI + h * KBOX, &mapXh, &full[stage], i0 + h * BOX, k0);
+            tma_load_2d(st + X_LO + h * KBOX, &mapXl, &full[stage], i0 + h * BOX, k0);
+          }
+          for (int h = 0; h < YB; ++h) {
+            tma_load_2d(st + Y_HI + h * KBOX, &mapYh, &full[stage], j0 + h * BOX, k0);
+            tma_load_2d(st + Y_LO + h * KBOX, &mapYl, &full[stage], j0 + h * BOX, k0);
+          }
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    } else if (tid >= NCONS + 32 && mode == kTTLower) {
+      // The zeros of the tiles wholly above the diagonal: row i's start at
+      // the first j-tile past its i-tile's last scheduled one.
+      const int t = tid - NCONS - 32, nt = NTHR - NCONS - 32;
+      for (int i = blockIdx.x; i < M; i += gridDim.x) {
+        float* row = C + (size_t)i * M;
+        const int c0 = BJ * ((i / BI) / 2 + 1);
+        if (M % 4 == 0)
+          for (int c = c0 + 4 * t; c < M; c += 4 * nt)
+            *reinterpret_cast<float4*>(row + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        else
+          for (int c = c0 + t; c < M; c += nt) row[c] = 0.f;
+      }
+    }
     return;
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / (BT / WC);
-  const int wc = warp % (BT / WC);
-  const bool vec = (M % 4) == 0;
 
-  mgp::Acc acc[FR][FC];
+  consumer_regs();
+  const int wg = tid / 128, lt = tid % 128, lane = lt % 32, wq = lt / 32;
+  Cursor cur;
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[128];
+  int a, b;
+  for (int it = 0; cur.at(tl, snake(it), a, b); ++it) {
+    const int i0 = a * BI, j0 = b * BJ;
 #pragma unroll
-  for (int i = 0; i < FR; ++i)
+    for (int q = 0; q < 128; ++q) acc[q] = 0.f;
+    int held = -1;                 // the stage the wgmma group in flight reads
+    for (int k0 = tl.kb(a, b); k0 < M; k0 += BK) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t base = smem_u32(smem + stage * STAGE_BYTES);
+      fence_operands(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  Tile<BK, BT> ta, tb;
-  const int kb = max(i0, j0);
-  ta.fetch(A, M, kb, i0, vec);
-  tb.fetch(B, M, kb, j0, vec);
-  for (int k0 = kb; k0 < M; k0 += BK) {
-    ta.store(Ah, Al, k0, i0, true);
-    tb.store(Bh, Bl, k0, j0, true);
-    __syncthreads();
-    if (k0 + BK < M) {
-      ta.fetch(A, M, k0 + BK, i0, vec);
-      tb.fetch(B, M, k0 + BK, j0, vec);
+      for (int kk = 0; kk < BK / 16; ++kk) {   // 16 k-rows = 2 atoms of 8 rows
+        const uint64_t xh = desc_mn_sw128(base + X_HI + wg * KBOX + kk * 2048, KBOX, 1024);
+        const uint64_t xl = desc_mn_sw128(base + X_LO + wg * KBOX + kk * 2048, KBOX, 1024);
+        const uint64_t yh = desc_mn_sw128(base + Y_HI + kk * 2048, KBOX, 1024);
+        const uint64_t yl = desc_mn_sw128(base + Y_LO + kk * 2048, KBOX, 1024);
+        wgmma_m64n256(acc, xh, yh);
+        wgmma_m64n256(acc, xh, yl);
+        wgmma_m64n256(acc, xl, yh);
+      }
+      wgmma_commit();
+      // Keep this step's group in flight: wait for the one before it and
+      // hand its stage back to the producer.
+      wgmma_wait<1>();
+      fence_operands(acc);
+      if (held >= 0 && lt == 0) mbar_arrive(&empty[held]);
+      held = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
     }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (held >= 0 && lt == 0) mbar_arrive(&empty[held]);
+    // acc[4 c + 2 h + e] is row i0 + 64 wg + 16 wq + lane / 4 + 8 h, column
+    // j0 + 8 c + 2 (lane % 4) + e.
+    const bool lower = mode == kTTLower, vec = M % 2 == 0;
+    const int row0 = i0 + 64 * wg + 16 * wq + lane / 4;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A^T as matrix_a: element (i, k) sits at Ah[k * LDW + i] (col_major).
-      const int a0 = kk * LDW + wr * WR, b0 = kk * LDW + wc * WC;
-      mma3<FragAT>(acc, Ah + a0, Al + a0, 1, LDW, Bh + b0, Bl + b0, LDW);
+    for (int c = 0; c < BJ / 8; ++c) {
+      const int j = j0 + 8 * c + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = row0 + 8 * h;
+        if (i >= M || j >= M) continue;
+        const float v0 = (lower && i < j) ? 0.f : acc[4 * c + 2 * h];
+        const float v1 = (lower && i < j + 1) ? 0.f : acc[4 * c + 2 * h + 1];
+        float* dst = C + (size_t)i * M + j;
+        if (vec && j + 1 < M) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (j + 1 < M) dst[1] = v1;
+        }
+      }
     }
-    __syncthreads();
   }
-
-  mgp::store_acc(acc, stage[warp], C, M, M, M, i0 + wr * WR, j0 + wc * WC,
-                 lower_out != 0, lane);
 }
 
-__global__ void __launch_bounds__(NTHR)
-tri_nt_kernel(const float* __restrict__ A, const float* __restrict__ B,
-              float* __restrict__ C, int M) {
-  __shared__ __align__(32) __nv_bfloat16 Ah[BT * LDT], Al[BT * LDT];   // [i][k]
-  __shared__ __align__(32) __nv_bfloat16 Bh[BK * LDW], Bl[BK * LDW];   // [k][j]
-  __shared__ __align__(32) float stage[NTHR / 32][16 * 16];
+// Work tiles of the list (the grid is never larger).
+int tile_count(int M, int mode) {
+  const int ni = (M + BI - 1) / BI, nj = (M + BJ - 1) / BJ;
+  if (mode == kNT) return ni * nj;
+  int n = 0;
+  for (int a = 0; a < ni; ++a)
+    for (int b = 0; b < nj; ++b) n += (mode == kTT || a >= 2 * b);
+  return n;
+}
 
-  const int j0 = blockIdx.x * BT;
-  const int i0 = blockIdx.y * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / (BT / WC);
-  const int wc = warp % (BT / WC);
-  const bool vec = (M % 4) == 0;
+// ws [4, M, ld] bf16: X hi, X lo, Y hi, Y lo.  C = X^T Y over the band.
+int launch(const float* A, const float* B, float* C, void* ws, int M, int mode,
+           cudaStream_t stream) {
+  if (M <= 0) return static_cast<int>(cudaGetLastError());
+  const int ld = (M + 7) / 8 * 8;
+  unsigned short* w = static_cast<unsigned short*>(ws);
+  const size_t plane = (size_t)M * ld;
+  const SplitArg x{A, w, w + plane, mode != kNT, mode == kNT};
+  const SplitArg y{B, w + 2 * plane, w + 3 * plane, 1, 0};
+  const dim3 sgrid((M + 31) / 32, (M + 31) / 32, 2);
+  trimm_split_kernel<<<sgrid, 256, 0, stream>>>(x, y, M, ld);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-  mgp::Acc acc[FR][FC];
-#pragma unroll
-  for (int i = 0; i < FR; ++i)
-#pragma unroll
-    for (int j = 0; j < FC; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  Tile<BT, BK> ta;
-  Tile<BK, BT> tb;
-  ta.fetch(A, M, i0, j0, vec);
-  tb.fetch(B, M, j0, j0, vec);
-  for (int k0 = j0; k0 < M; k0 += BK) {
-    ta.store(Ah, Al, i0, k0, false);
-    tb.store(Bh, Bl, k0, j0, true);
-    __syncthreads();
-    if (k0 + BK < M) {
-      ta.fetch(A, M, i0, k0 + BK, vec);
-      tb.fetch(B, M, k0 + BK, j0, vec);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const int a0 = wr * WR * LDT + kk, b0 = kk * LDW + wc * WC;
-      mma3<FragAN>(acc, Ah + a0, Al + a0, LDT, LDT, Bh + b0, Bl + b0, LDW);
-    }
-    __syncthreads();
-  }
-
-  mgp::store_acc(acc, stage[warp], C, M, M, M, i0 + wr * WR, j0 + wc * WC,
-                 false, lane);
+  CUtensorMap maps[4];
+  const cuuint64_t dims[2] = {(cuuint64_t)M, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  for (int q = 0; q < 4; ++q)
+    if (!encode_bf16(&maps[q], 2, w + q * plane, dims, strides, BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(tri_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = tile_count(M, mode);
+  const int grid = tiles < sms ? tiles : sms;
+  tri_mm_kernel<<<grid, NTHR, SMEM_BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], C, M,
+                                                    mode);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // A, B [M, M] fp32 row-major (upper triangles ignored) -> C = tril(A)^T tril(B)
 // [M, M] fp32; with lower_out, C is exactly the lower triangle of that product.
-extern "C" int mgp_tri_tt(const void* A, const void* B, void* C, int M,
+// ws: bf16 scratch [4, M, ld], ld = M rounded up to a multiple of 8.
+extern "C" int mgp_tri_tt(const void* A, const void* B, void* C, void* ws, int M,
                           int lower_out, void* stream) {
-  if (M > 0) {
-    const int nt = (M + BT - 1) / BT;
-    tri_tt_kernel<<<dim3(nt, nt), NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B),
-        static_cast<float*>(C), M, lower_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(static_cast<const float*>(A), static_cast<const float*>(B),
+                static_cast<float*>(C), ws, M, lower_out ? kTTLower : kTT,
+                static_cast<cudaStream_t>(stream));
 }
 
-// A [M, M] fp32 dense, B [M, M] fp32 (upper triangle ignored) -> C = A tril(B).
-extern "C" int mgp_tri_nt(const void* A, const void* B, void* C, int M, void* stream) {
-  if (M > 0) {
-    const int nt = (M + BT - 1) / BT;
-    tri_nt_kernel<<<dim3(nt, nt), NTHR, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B),
-        static_cast<float*>(C), M);
-  }
-  return static_cast<int>(cudaGetLastError());
+// A [M, M] fp32 dense, B [M, M] fp32 (upper triangle ignored) -> C = A tril(B);
+// ws as for mgp_tri_tt.
+extern "C" int mgp_tri_nt(const void* A, const void* B, void* C, void* ws, int M,
+                          void* stream) {
+  return launch(static_cast<const float*>(A), static_cast<const float*>(B),
+                static_cast<float*>(C), ws, M, kNT, static_cast<cudaStream_t>(stream));
 }

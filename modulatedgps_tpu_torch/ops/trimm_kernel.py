@@ -19,7 +19,11 @@ CHOLPREC_GRADERR_r04.json), so float32 products are the 3-pass bf16 split
 of pallas_trimm._dot3 -- x = hi + lo, hi the bf16 with x's low 16 bits
 masked off, lo = bf16(x - hi), and hi*hi + hi*lo + lo*hi accumulated in
 fp32 -- on the card and in the plain versions alike.  A float64 product
-(the CPU reference) is taken exactly.
+(the CPU reference) is taken exactly.  On the card a first launch writes
+the operands' masked (and for nt's A transposed) hi / lo copies into a bf16
+workspace [4, M, ld] that the wrapper allocates (``split_operands_plain``
+is that pass's plain version); a second runs the banded product on TMA and
+wgmma from them.
 
 ``tri_tt_matmul`` and ``tri_nt_matmul`` take the plain version only for
 CPU tensors; for CUDA tensors they launch the kernel or raise.  Every
@@ -34,7 +38,11 @@ from .. import _native
 
 __all__ = ["tri_tt_matmul", "tri_tt_matmul_plain", "tri_nt_matmul",
            "tri_nt_matmul_plain", "chol_pullback_structured",
-           "chol_pullback_dense", "split_bf16", "check_launch_args"]
+           "chol_pullback_dense", "split_bf16", "split_operands_plain",
+           "workspace_shape", "tile_order", "check_launch_args",
+           "TILE_I", "TILE_J"]
+
+TILE_I, TILE_J = 128, 256   # csrc/trimm.cu's output tile (i rows, j columns)
 
 
 def split_bf16(x):
@@ -42,6 +50,44 @@ def split_bf16(x):
     (exactly a bf16, x - hi exact in f32), lo = bf16(x - hi)."""
     hi = (x.view(torch.int32) & -65536).view(torch.float32)
     return hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)
+
+
+def workspace_shape(M):
+    """The bf16 workspace of a launch: (X hi, X lo, Y hi, Y lo) [M, ld],
+    ld = M rounded up to 8 (TMA's 16-byte row strides)."""
+    return (4, M, -(-M // 8) * 8)
+
+
+def split_operands_plain(A, B, *, nt):
+    """The kernels' split pass: the [4, M, ld] workspace holding the hi / lo
+    bf16 copies of X = tril(A) (tt) or A^T (nt) and of Y = tril(B), entries
+    above a diagonal stored as 0; columns past M are left 0 here (the
+    kernels never read them)."""
+    M = A.shape[0]
+    ws = torch.zeros(workspace_shape(M), dtype=torch.bfloat16,
+                     device=A.device)
+    X = A.T if nt else torch.tril(A)
+    for q, t in enumerate((X, torch.tril(B))):
+        ws[2 * q, :, :M], ws[2 * q + 1, :, :M] = split_bf16(t.contiguous())
+    return ws
+
+
+def tile_order(M, *, nt=False, tril_out=False):
+    """The work tiles (i-tile a, j-tile b) of csrc/trimm.cu's list, longest
+    band first: by the k row the tile starts from (tt: max(128 a, 256 b);
+    nt: 256 b), then as the kernel's Tiles enumerates a level; with
+    ``tril_out`` only the tiles that hold an entry with i >= j."""
+    ni, nj = -(-M // TILE_I), -(-M // TILE_J)
+    order = []
+    for d in range(ni + 2 * nj):
+        level = d % 2 == 0 and d // 2 < nj      # tiles with 256 b = 128 d
+        lo = [(d, b) for b in range(min(d // 2, nj - 1) + 1)] if d < ni else []
+        if nt:
+            order += [(a, d // 2) for a in range(ni)] if level else []
+        else:
+            hi = [(a, d // 2) for a in range(min(d, ni))] if level else []
+            order += lo if tril_out else lo + hi
+    return order
 
 
 def _dot(a, b):
@@ -85,8 +131,10 @@ def tri_tt_matmul(A, B, *, tril_out: bool):
         return tri_tt_matmul_plain(A, B, tril_out=tril_out)
     check_launch_args("tri_tt_matmul", A, B)
     C = torch.empty((M, M), dtype=torch.float32, device=A.device)
+    ws = torch.empty(workspace_shape(M), dtype=torch.bfloat16, device=A.device)
     code = _native.library().mgp_tri_tt(A.data_ptr(), B.data_ptr(),
-                                        C.data_ptr(), M, int(tril_out),
+                                        C.data_ptr(), ws.data_ptr(), M,
+                                        int(tril_out),
                                         _native.stream_ptr(A.device))
     _native.check(code, "tri_tt_matmul")
     tri_tt_matmul.launches += 1
@@ -101,8 +149,9 @@ def tri_nt_matmul(A, B):
         return tri_nt_matmul_plain(A, B)
     check_launch_args("tri_nt_matmul", A, B)
     C = torch.empty((M, M), dtype=torch.float32, device=A.device)
+    ws = torch.empty(workspace_shape(M), dtype=torch.bfloat16, device=A.device)
     code = _native.library().mgp_tri_nt(A.data_ptr(), B.data_ptr(),
-                                        C.data_ptr(), M,
+                                        C.data_ptr(), ws.data_ptr(), M,
                                         _native.stream_ptr(A.device))
     _native.check(code, "tri_nt_matmul")
     tri_nt_matmul.launches += 1

@@ -4,23 +4,24 @@ their plain versions.
 Replaces modulatedgps_tpu/ops/pallas_linalg.py:_trsm_kernel (reached there
 through solve_triangular_blocked / solve_triangular_large and
 linalg._pallas_trinv) and _trsm_t_kernel (the same calls with
-``trans=True``).  The kernels are csrc/trsm.cu.  On the H100 the forward
-substitution of an inverse is bound by its sequential walk over block rows;
-a solve with a wide B by the shared-memory bandwidth that feeds its fp32
-FMAs.  One launch inverts the
-64x64 diagonal blocks, and a second gives each column strip of B its own
-CUDA block, which walks the block rows in order (the TPU's fori_loop over row
-blocks) with fp32 FMAs only: downwards for L^-1 B, upwards for L^-T B.  The
-inverse and a B narrower than ``WIDE_MIN_NB`` columns take 16-column strips;
-a wider B takes 64-column strips with a 4x4 register tile a thread, fed
-through a cp.async ring: a shape rule between two kernels that give the same
-bits.  For the inverse (B = I, ``B=None``) a strip skips the block rows above
-its diagonal, and so does the forward solve with ``tril_rhs=True`` (each run
-of M columns of B lower-triangular, as the unwhitened KL's [M, K*M] right
-side), with the same result.  A caller holding the Cholesky's
-diagonal-block inverses (chol_kernel.cholesky_factor, the JAX package's
-``_trsm_pallas_raw(L, Inv, B)``) passes them as ``inv`` and the first
-launch is skipped.
+``trans=True``).  The kernels are csrc/trsm.cu.  One launch inverts the
+64x64 diagonal blocks; a second walks the block rows of each column strip of
+B with fp32 FMAs only (the TPU's fori_loop over row blocks): downwards for
+L^-1 B, upwards for L^-T B.  A B of at least ``WIDE_MIN_NB`` columns gives
+each 64-column strip its own CUDA block, bound by the shared-memory
+bandwidth that feeds its FMAs.  The inverse and a narrower B run as a
+wavefront over the whole card: each (block row, strip) is a work item taken
+from a ticket counter by a persistent grid, waiting only on the ready flags
+of the X blocks above it (``wavefront_order`` gives the tickets' order and
+the int32 scratch, zeroed here for each call).  The strips are 64 columns
+wide, or 8 for a B narrower than ``NARROW_MAX_NB``.  Every kernel keeps one
+FMA order, so all give the same bits.  For the inverse (B = I, ``B=None``) a
+strip skips the block rows above its diagonal, and so does the forward solve
+with ``tril_rhs=True`` (each run of M columns of B lower-triangular, as the
+unwhitened KL's [M, K*M] right side), with the same result.  A caller
+holding the Cholesky's diagonal-block inverses (chol_kernel.cholesky_factor,
+the JAX package's ``_trsm_pallas_raw(L, Inv, B)``) passes them as ``inv``
+and the first launch is skipped.
 
 ``trsm_lower`` and ``trsm_lower_t`` take the plain version only for CPU
 tensors; for CUDA tensors they launch the kernel or raise.  Every call that
@@ -33,10 +34,57 @@ import torch
 from .. import _native
 
 __all__ = ["trsm_lower", "trsm_lower_plain", "trsm_lower_t",
-           "trsm_lower_t_plain", "check_launch_args", "BLOCK", "WIDE_MIN_NB"]
+           "trsm_lower_t_plain", "check_launch_args", "wavefront_order",
+           "wavefront_width", "first_block", "BLOCK", "WIDE_MIN_NB",
+           "NARROW_MAX_NB"]
 
 BLOCK = 64   # diagonal block size of csrc/trsm.cu
 WIDE_MIN_NB = 4096   # csrc/trsm.cu's kWideMinNb: from this width B runs wide
+NARROW_MAX_NB = 64   # kNarrowMaxNb: below it a general B takes 8-column strips
+
+
+def wavefront_width(Nb, unit_rhs):
+    """The wavefront's strip width for a right side of Nb columns, or None
+    when the wide kernel takes it (csrc/trsm.cu's solve)."""
+    if not unit_rhs and Nb >= WIDE_MIN_NB:
+        return None
+    return 8 if not unit_rhs and Nb < NARROW_MAX_NB else 64
+
+
+def first_block(c0, w, M, Nb):
+    """csrc/trsm.cu's first_block: the first block row a strip of w columns
+    from c0 computes when each run of M columns is lower-triangular."""
+    lc = c0 % M
+    return lc // BLOCK if (lc + w <= M or c0 - lc + M >= Nb) else 0
+
+
+def _scratch_words(M, Nb, unit_rhs):
+    W = wavefront_width(Nb, unit_rhs)
+    return 0 if W is None else 1 + -(-M // BLOCK) * -(-Nb // W)
+
+
+def wavefront_order(M, Nb, unit_rhs=False, tril_rhs=False, trans=False):
+    """(items, words): the wavefront kernel's items (block row k, strip s)
+    in ticket order, and the int32 words of its scratch (the ticket counter
+    and a flag per (k, s)); ([], 0) when the wide kernel runs.  As
+    csrc/trsm.cu documents it: walk rows in order (forward k ascending,
+    ``trans`` descending), each holding the strips whose first block row is
+    at most k (with ``unit_rhs`` or ``tril_rhs`` on the forward walk; else
+    every strip), in the order of a stable sort of the strips by that first
+    block row."""
+    W = wavefront_width(Nb, unit_rhs)
+    if W is None:
+        return [], 0
+    nblk, nstrips = -(-M // BLOCK), -(-Nb // W)
+    skip = not trans and (unit_rhs or tril_rhs)
+    kstart = [first_block(s * W, W, M, Nb) if skip else 0
+              for s in range(nstrips)]
+    perm = sorted(range(nstrips), key=lambda s: kstart[s])
+    items = []
+    for w in range(nblk):
+        k = nblk - 1 - w if trans else w
+        items += [(k, s) for s in perm if kstart[s] <= k]
+    return items, _scratch_words(M, Nb, unit_rhs)
 
 
 def trsm_lower_plain(L, B=None):
@@ -73,19 +121,22 @@ def _check_shapes(what, L, B):
 
 
 def _launch(what, L, B, inv, *args):
-    """Allocate X (and the diagonal-block scratch unless ``inv`` is
-    given), launch, check."""
+    """Allocate X, the wavefront's zeroed scratch (and the diagonal-block
+    scratch unless ``inv`` is given), launch, check."""
     check_launch_args(L, B, what, inv)
     M = L.shape[0]
     Nb = M if B is None else B.shape[1]
     X = torch.empty((M, Nb), dtype=torch.float32, device=L.device)
+    work = torch.zeros(_scratch_words(M, Nb, B is None), dtype=torch.int32,
+                       device=L.device)
     given = inv is not None
     if not given:
         inv = torch.empty(((M + BLOCK - 1) // BLOCK, BLOCK, BLOCK),
                           dtype=torch.float32, device=L.device)
     code = getattr(_native.library(), f"mgp_{what}")(
         L.data_ptr(), inv.data_ptr(), None if B is None else B.data_ptr(),
-        X.data_ptr(), M, Nb, *args, int(given), _native.stream_ptr(L.device))
+        X.data_ptr(), work.data_ptr(), M, Nb, *args, int(given),
+        _native.stream_ptr(L.device))
     _native.check(code, what)
     return X
 

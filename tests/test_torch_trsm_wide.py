@@ -6,11 +6,11 @@ ops/trsm_kernel.py, csrc/trsm.cu), on the CPU.
   kernels' 64-row blocks and strips: its forward solves take
   ``tril_rhs=True``, which the plain version ignores.
 - The blocked walk that skips a strip's zero block rows, emulated in torch
-  with the kernels' strip widths (16 and 64) and block order, gives exactly
+  with the kernels' strip widths (8 and 64) and block order, gives exactly
   the unskipped walk's result on a lower-triangular right side, a strip
   holding columns of two latents included.
 - The wrapper refuses ``tril_rhs`` without a width that is a multiple of M,
-  and passes (unit_rhs, tril_rhs, inv_given) to the entry point.
+  and passes (work, unit_rhs, tril_rhs, inv_given) to the entry point.
 - Every ctypes argument list in _native.py matches its ``extern "C"``
   signature, parsed from csrc/*.cu.
 """
@@ -142,7 +142,7 @@ def _walk(L, B, w, skip):
     return X[:M]
 
 
-@pytest.mark.parametrize("w", [16, 64])
+@pytest.mark.parametrize("w", [8, 64])
 @pytest.mark.parametrize("M, K", [(128, 2), (130, 3), (200, 2), (64, 3)])
 def test_skipping_zero_block_rows_gives_the_unskipped_result(w, M, K):
     """On a right side lower-triangular in each latent's M columns (NaN
@@ -163,10 +163,11 @@ def test_skipping_zero_block_rows_gives_the_unskipped_result(w, M, K):
 
 def test_first_block_matches_unit_rhs_on_the_identity():
     """With B = I (Nb = M) every strip starts at its own first column's
-    block row, as the inverse's unit_rhs walk does."""
+    block row, as the inverse's unit_rhs walk (64-column strips) does."""
     for M in (1, 64, 130, 4096):
-        for c0 in range(0, M, 16):
-            assert _first_block(c0, 16, M, M) == c0 // BS
+        for c0 in range(0, M, 64):
+            assert _first_block(c0, 64, M, M) == c0 // BS
+            assert trsm_kernel.first_block(c0, 64, M, M) == c0 // BS
 
 
 @pytest.mark.parametrize("B_shape", [None, (6, 7), (6, 13)])
@@ -213,9 +214,9 @@ class _OnTheCard:
 @pytest.mark.parametrize("case", ["inverse", "wide", "tril_rhs", "inv_given",
                                   "transposed"])
 def test_trsm_launcher_passes_its_flags(case):
-    """The entry point gets (L, inv, B, X, M, Nb, unit_rhs, tril_rhs,
-    inv_given, stream) for L^-1 B and (L, inv, B, X, M, Nb, inv_given,
-    stream) for L^-T B, with the launch counted."""
+    """The entry point gets (L, inv, B, X, work, M, Nb, unit_rhs, tril_rhs,
+    inv_given, stream) for L^-1 B and (L, inv, B, X, work, M, Nb,
+    inv_given, stream) for L^-T B, with the launch counted."""
     M, Nb = 8, 24
     calls = []
 
@@ -231,25 +232,33 @@ def test_trsm_launcher_passes_its_flags(case):
     L = _OnTheCard(torch.eye(M))
     B = None if case == "inverse" else _OnTheCard(torch.ones(M, Nb))
     inv = _OnTheCard(torch.ones(1, BS, BS)) if case == "inv_given" else None
-    real_empty = torch.empty
+    real_empty, real_zeros, scratch = torch.empty, torch.zeros, []
     cpu_empty = lambda *a, device=None, **kw: real_empty(*a, **kw)  # noqa: E731
+
+    def cpu_zeros(*a, device=None, **kw):
+        scratch.append(real_zeros(*a, **kw))
+        return scratch[-1]
+
     fn = trsm_kernel.trsm_lower_t if case == "transposed" else trsm_kernel.trsm_lower
     kw = {"tril_rhs": True} if case == "tril_rhs" else {}
     before = fn.launches
     with mock.patch.object(_native, "library", Lib), \
             mock.patch.object(_native, "stream_ptr", lambda device: 77), \
-            mock.patch.object(trsm_kernel.torch, "empty", cpu_empty):
+            mock.patch.object(trsm_kernel.torch, "empty", cpu_empty), \
+            mock.patch.object(trsm_kernel.torch, "zeros", cpu_zeros):
         X = fn(L, B, inv=inv, **kw)
     (args,) = calls
     width = M if B is None else Nb
     assert X.shape == (M, width) and args[3] == X.data_ptr()
+    (work,) = scratch
+    assert args[4] == work.data_ptr() and work.dtype == torch.int32
     assert args[2] == (None if B is None else B.data_ptr())
     if inv is not None:
         assert args[1] == inv.data_ptr()
     if case == "transposed":
-        assert args[4:] == (M, width, 0, 77)
+        assert args[5:] == (M, width, 0, 77)
     else:
-        assert args[4:] == (M, width, int(case == "inverse"),
+        assert args[5:] == (M, width, int(case == "inverse"),
                             int(case == "tril_rhs"), int(case == "inv_given"),
                             77)
     assert fn.launches == before + 1
