@@ -8,9 +8,10 @@ once on one NVIDIA card.
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
 builds both, times the Cholesky, the tril forward and backward kernels, the
-TRSM (#2, #4), the pullback's products (#10/#11) and the fused q_sqrt
-quadratic (#17) of the two in turns on the same inputs and compares their
-outputs, and prints no last line.
+TRSM (#2, #4), the pullback's products (#10/#11), the fused q_sqrt
+quadratic (#17), K(X, Z) and its pullback (#1) and the KL forward sums
+(#12) of the two in turns on the same inputs and compares their outputs,
+and prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -26,6 +27,8 @@ Phases, each printing its own lines:
      lower-triangular right side with and without tril_rhs (equal); on
      narrow ones and the inverse (the wavefront kernel) at ragged shapes,
      M=1 and [4096, 8]; the pullback's split pass bit for bit;
+     K(X, Z)'s pullback (#1) against its closed form and the f64 gradient
+     at ragged shapes and at Kmn [4096, 8192] and Kmm [4096, 4096];
      the blocked Cholesky (#15/#16) also against f64 and cuSOLVER on both
      north-star Kmm at M = 1, 70, 1000, 1024 and 4096, with its device time
      by kernel at M=4096;
@@ -95,6 +98,8 @@ import torch
 KERNEL_SOURCES = {
     "kxz": ("modulatedgps_tpu_torch/csrc/kxz.cu",
             "modulatedgps_tpu/ops/pallas_kernels.py:94"),
+    "kxz_vjp": ("modulatedgps_tpu_torch/csrc/kxz.cu",
+                "modulatedgps_tpu/ops/pallas_kernels.py:155"),
     "trsm_lower": ("modulatedgps_tpu_torch/csrc/trsm.cu",
                    "modulatedgps_tpu/ops/pallas_linalg.py:313"),
     "tril_sq_fwd": ("modulatedgps_tpu_torch/csrc/tril_fwd.cu",
@@ -133,7 +138,7 @@ KERNEL_SOURCES = {
 # qsqrt_sq_colsum from the served batches of phase 3).
 SERVING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "cholesky_factor",
                    "qsqrt_sq_colsum")
-TRAIN_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_sq_dl",
+TRAIN_KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "tril_sq_fwd", "tril_sq_dl",
                  "tril_sq_da", "tri_tt_matmul", "tri_nt_matmul",
                  "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_",
                  "cholesky_factor")
@@ -142,11 +147,11 @@ SAMPLING_KERNELS = ("kxz", "trsm_lower", "tril_sq_fwd", "tril_fwd_f32",
 UNWHITENED_SERVING_KERNELS = ("kxz", "trsm_lower", "trsm_lower_t",
                               "tril_sq_fwd", "cholesky_factor",
                               "qsqrt_sq_colsum")
-UNWHITENED_TRAIN_KERNELS = ("kxz", "trsm_lower", "trsm_lower_t",
+UNWHITENED_TRAIN_KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "trsm_lower_t",
                             "tril_sq_fwd", "tril_sq_dl", "tril_sq_da",
                             "tri_tt_matmul", "tri_nt_matmul", "adam_tril_",
                             "cholesky_factor")
-JOINT_GRAD_KERNELS = ("kxz", "trsm_lower", "tril_fwd_f32", "tril_dl",
+JOINT_GRAD_KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "tril_fwd_f32", "tril_dl",
                       "tril_da", "tri_tt_matmul", "tri_nt_matmul",
                       "cholesky_factor")
 # Phase 4 (M=1024, the size of #15's TPU kernel) launches these on the card.
@@ -198,6 +203,25 @@ def cuda_ms(fns, reps):
             end.synchronize()
             times[i].append(start.elapsed_time(end))
     return [statistics.median(t) for t in times]
+
+
+def device_ms(fn, subs, reps=20):
+    """Device milliseconds of one call of fn from torch.profiler: the self
+    device time of the kernels and memsets whose names hold one of subs,
+    over reps calls after a warm-up (cuda_ms's events also take the
+    wrapper's host time when that is longer than the device's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and any(sub in ev.key for sub in subs))
+    return total / reps / 1e3
 
 
 def bound(nbytes, flops, kind):
@@ -325,14 +349,17 @@ def phase_kernels():
         check(bad == 0, f"kxz {label} {kind} [{M},{D}]x[{N},{D}]: max_abs_err "
               f"{err:.3e}, {bad} outside rtol 1e-5 atol {1e-6 * var:.1e}")
         if record:
+            call = lambda: kxz_kernel.kxz(Z, X, ls_t, var_t, kind=kind)
             ms, plain_ms = cuda_ms(
-                [lambda: kxz_kernel.kxz(Z, X, ls_t, var_t, kind=kind),
+                [call,
                  lambda: kxz_kernel.kxz_plain(Z, X, ls_t, var_t, kind=kind)], 20)
-            log(f"  kxz [{M},{D}]x[{N},{D}]: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms")
+            dev_ms = device_ms(call, ("kxz_kernel",))
+            log(f"  kxz [{M},{D}]x[{N},{D}]: kernel {ms:.4f} ms ({dev_ms:.4f} "
+                f"ms device), plain {plain_ms:.4f} ms")
             # One fp32 pass per output: the D-term cross product, two norm
             # adds, the clamp, the scale, the exp and the variance.
-            return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms,
                     **bound(4 * (N * D + M * D + D + 1 + N * M),
                             N * M * (2 * D + 5), "fp32"),
                     "library_ms": None}
@@ -340,9 +367,15 @@ def phase_kernels():
 
     kxz_case("ragged", 301, 37, 3, [0.5, 0.9, 1.4], 0.7, "rbf", False)
     kxz_case("ragged", 301, 37, 3, [0.5, 0.9, 1.4], 0.7, "matern32", False)
+    kxz_case("ragged, scalar l", 300, 1, 8, 0.8, 0.7, "rbf", False)
+    kxz_case("ragged, generic D", 130, 77, 11, 1.3, 0.7, "matern32", False)
+    kxz_case("ragged, generic D", 301, 77, 130, 12.0, 0.7, "rbf", False)
+    kxz_case("ragged, generic D", 301, 77, 130, KXZ_WIDE_LS, 0.7, "matern32",
+             False)
     kxz_case("main", M_FULL, M_FULL, D_IN, PRED_SE[1], PRED_SE[0], "rbf", True)
     rows["kxz"] = kxz_case("main", BATCH, M_FULL, D_IN, PRED_SE[1], PRED_SE[0],
                            "rbf", True)
+    rows.update(kxz_vjp_rows(g))
 
     # --- trsm_lower: the repo's on-chip protocol -- the kernel's residual
     # max|L X - I| is within 3x of the plain version's on the same L.
@@ -645,6 +678,141 @@ def phase_kernels():
     trsm_wide_rows(rand, spd_chol)
     trsm_wave_rows(rand, spd_chol)
     rows.update(chol_quad_rows(rand))
+    return rows
+
+
+# The pullback's gradients, each held to 5e-5 of its f64 gradient's largest
+# entry (the f32 closed form reaches 3e-7 to 1.2e-5 of it on the CPU at the
+# main shapes, for both kinds).
+KXZ_VJP_TOL = 5e-5
+KXZ_LEAVES = ("X", "X2", "lengthscales", "variance")
+# An ARD lengthscale for the D = 130 cases of #1's generic path (D over 8,
+# staged 8 coordinates at a time): d2 stays a few units at that width.
+KXZ_WIDE_LS = [float(v) for v in np.linspace(9.0, 15.0, 130)]
+
+
+def kxz_eager_pullback(X, X2, ls, var, Kbar, kind, needs):
+    """The pullback as autograd computes it from the dense formula (what
+    kxz's backward ran before it had a kernel)."""
+    from modulatedgps_tpu_torch.ops import kxz_kernel
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip((X, X2, ls, var), needs)]
+        K = kxz_kernel.kxz_plain(*leaves, kind=kind)
+        grads = iter(torch.autograd.grad(
+            K, [t for t, n in zip(leaves, needs) if n], Kbar))
+    return [next(grads) if n else None for n in needs]
+
+
+def kxz_vjp_rows(g):
+    """Phase 2's rows for the pullback of #1 (csrc/kxz.cu's kxz_vjp_kernel
+    and kxz_vjp_sum_kernel): at ragged shapes (N, M and D not multiples of
+    the tiles, D = 11 and 130 on the generic path, M = 1, a scalar and an ARD
+    lengthscale, every subset of the gradients asked for) and at the train
+    step's Kmn [4096, 8192] and Kmm [4096, 4096] (one tensor on both sides),
+    both kinds: each gradient against the closed form in f32
+    (kxz_vjp_plain) and the f64 autograd gradient, within KXZ_VJP_TOL of
+    the latter's largest entry, and the same bits on a second launch.  The
+    Kmn row is timed beside the closed form and the eager autograd pullback
+    it replaced."""
+    from modulatedgps_tpu_torch.ops import kxz_kernel
+    dev = torch.device("cuda")
+    rows = {}
+
+    # Rows: inducing points ~ N(0, 1); columns: data in [-3, 3] (Kmn), or
+    # the rows' own tensor (Kmm: autograd adds the two gradients).
+    def case(label, N, M, D, ls, var, kind, same, needs, record=False):
+        X = torch.randn(N, D, generator=g).to(dev)
+        X2 = X if same else (6 * torch.rand(M, D, generator=g) - 3).to(dev)
+        M = X2.shape[0]
+        ls_t = torch.as_tensor(ls, dtype=torch.float32, device=dev)
+        var_t = torch.tensor(var, dtype=torch.float32, device=dev)
+        Kbar = torch.randn(N, M, generator=g).to(dev)
+        ins = (X, X2, ls_t, var_t)
+        got = kxz_kernel.kxz_vjp(*ins, Kbar, kind=kind, needs=needs)
+        again = kxz_kernel.kxz_vjp(*ins, Kbar, kind=kind, needs=needs)
+        torch.cuda.synchronize()
+        plain = kxz_kernel.kxz_vjp_plain(*ins, Kbar, kind, needs)
+        exact = kxz_eager_pullback(*(t.double() for t in ins), Kbar.double(),
+                                   kind, needs)
+        errs, ok = {}, True
+        for name, a, b, p, e in zip(KXZ_LEAVES, got, again, plain, exact):
+            if e is None:
+                ok = ok and a is None and b is None
+                continue
+            scale = float(e.abs().max())
+            err = float((a.double() - e).abs().max())
+            err_p = float((a - p).abs().max())
+            err_32 = float((p.double() - e).abs().max())
+            errs[name] = err
+            good = (a.shape == e.shape and finite(a) and same_bits(a, b)
+                    and err <= KXZ_VJP_TOL * scale
+                    and err_p <= KXZ_VJP_TOL * scale)
+            ok = ok and good
+            log(f"    {name}: vs f64 {err:.3e}, vs plain f32 {err_p:.3e} of max "
+                f"{scale:.3e} (plain f32 vs f64 {err_32:.3e}); same bits "
+                f"twice {same_bits(a, b)}")
+        check(ok, f"kxz_vjp {label} {kind} [{N},{D}]x[{M},{D}] "
+              f"{'K(Z, Z) ' if same else ''}needs {needs}: every gradient within "
+              f"{KXZ_VJP_TOL:g} of its f64 maximum, against f64 and plain f32, "
+              f"the same bits twice")
+        if not record:
+            return None
+        call = lambda: kxz_kernel.kxz_vjp(*ins, Kbar, kind=kind, needs=needs)
+        ms, plain_ms, eager_ms = cuda_ms(
+            [call, lambda: kxz_kernel.kxz_vjp_plain(*ins, Kbar, kind, needs),
+             lambda: kxz_eager_pullback(*ins, Kbar, kind, needs)], 20)
+        dev_ms = device_ms(call, ("kxz_vjp", "Memset"))
+        eager_dev_ms = device_ms(
+            lambda: kxz_eager_pullback(*ins, Kbar, kind, needs), ("",), 5)
+        log(f"  kxz_vjp [{N},{D}]x[{M},{D}] {kind} needs {needs}: kernel "
+            f"{ms:.4f} ms ({dev_ms:.4f} ms device), plain (closed form) "
+            f"{plain_ms:.4f} ms, eager autograd pullback {eager_ms:.4f} ms "
+            f"({eager_dev_ms:.4f} ms device)")
+        # Bytes the gradient needs: Kbar read once, X, X2, l and var read,
+        # the gradients written.  The workspace's partials (written once and
+        # read once) are this design's, not the function's: logged apart.
+        n_row, n_col, n_block = kxz_kernel.vjp_workspace(N, M, D, needs)
+        outs = sum(n * size for n, size in zip(needs, (N * D, M * D, D, 1)))
+        nbytes = 4 * (N * M + (N + M) * D + D + 1 + outs)
+        ws_bytes = 2 * (4 * (n_row + n_col) + 8 * n_block)
+        log(f"    bytes the gradient needs {nbytes / 1e6:.1f} MB; the "
+            f"workspace's partials add {ws_bytes / 1e6:.1f} MB (not in the "
+            f"bound)")
+        # Per entry: the D-term cross product, the clamp and the epilogue,
+        # W, the row and column sums (1 + D each) and the variance's.
+        return {"max_abs_err": max(errs.values()), "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "eager_ms": eager_ms, "eager_device_ms": eager_dev_ms,
+                **bound(nbytes, N * M * (6 * D + 12), "fp32"),
+                "library_ms": None}
+
+    for kind in ("rbf", "matern32"):
+        case("ragged", 301, 37, 3, [0.5, 0.9, 1.4], 0.7, kind, False,
+             (True, True, True, True))
+        case("ragged", 301, None, 3, 0.6, 0.7, kind, True,
+             (True, True, True, True))
+        case("ragged, generic D", 130, 77, 11, 1.3, 0.7, kind, False,
+             (True, True, True, True))
+        case("ragged, generic D", 301, 77, 130, KXZ_WIDE_LS, 0.7, kind, False,
+             (True, True, True, True))
+        case("ragged, generic D", 301, None, 130, 12.0, 0.7, kind, True,
+             (True, True, True, True))
+    for needs in ((True, False, False, False), (False, True, False, False),
+                  (False, False, True, False), (False, False, False, True),
+                  (True, False, True, True), (False, True, True, False)):
+        case("ragged", 257, 129, 4, 0.5, 1.1, "rbf", False, needs)
+    case("ragged", 1, 1, 4, [0.5, 0.9, 1.4, 2.0], 0.7, "rbf", False,
+         (True, True, True, True))
+    case("ragged", 3, 1, 2, 0.9, 0.7, "matern32", False,
+         (True, True, True, True))
+    kmn_needs = (True, False, True, True)     # Z, l and var; not the data
+    for kind in ("rbf", "matern32"):
+        row = case("main Kmn", M_FULL, BATCH, D_IN, PRED_SE[1], PRED_SE[0],
+                   kind, False, kmn_needs, record=kind == "rbf")
+        rows.setdefault("kxz_vjp", row)
+        case("main Kmm", M_FULL, None, D_IN, PRED_SE[1], PRED_SE[0], kind,
+             True, (True, True, True, True), record=kind == "rbf")
     return rows
 
 
@@ -1178,18 +1346,25 @@ def kl_adam_rows(rand, g):
              lambda: kl_kernel.kl_bwd_scale(Lq, g0),
              lambda: kl_kernel.kl_bwd_scale_plain(Lq, g0),
              lambda: dense_kl_bwd(Lt, g0)], 10)
-        log(f"  kl_sq_logdiag K={K} M={M}: kernel {ms_f:.4f} ms, plain "
-            f"{plain_f:.4f} ms, dense sum + diagonal log {lib_f:.4f} ms")
-        log(f"  kl_bwd_scale K={K} M={M}: kernel {ms_b:.4f} ms, plain "
-            f"{plain_b:.4f} ms, dense backward {lib_b:.4f} ms")
+        dev_f = device_ms(lambda: kl_kernel.kl_sq_logdiag(Lq),
+                          ("kl_fwd_kernel", "Memset"))
+        log(f"  kl_sq_logdiag K={K} M={M}: kernel {ms_f:.4f} ms ({dev_f:.4f} "
+            f"ms device), plain {plain_f:.4f} ms, dense sum + diagonal log "
+            f"{lib_f:.4f} ms")
+        dev_b = device_ms(lambda: kl_kernel.kl_bwd_scale(Lq, g0),
+                          ("kl_bwd_kernel",))
+        log(f"  kl_bwd_scale K={K} M={M}: kernel {ms_b:.4f} ms ({dev_b:.4f} "
+            f"ms device), plain {plain_b:.4f} ms, dense backward {lib_b:.4f} ms")
         tri = K * M * (M + 1) // 2
         return {"kl_sq_logdiag": {
                     "max_abs_err": abs(float(sq) - sq64), "ms": ms_f,
+                    "device_ms": dev_f,
                     "plain_ms": plain_f,
                     **bound(4 * tri + 8, 2 * tri + K * M, "fp32"),
                     "library_ms": lib_f},
                 "kl_bwd_scale": {
-                    "max_abs_err": err, "ms": ms_b, "plain_ms": plain_b,
+                    "max_abs_err": err, "ms": ms_b, "device_ms": dev_b,
+                    "plain_ms": plain_b,
                     **bound(4 * tri + 4 + 4 * K * M * M, tri + 2 * K * M,
                             "fp32"),
                     "library_ms": lib_b}}
@@ -1237,11 +1412,13 @@ def kl_adam_rows(rand, g):
         leaf.grad = grad
         lib = torch.optim.Adam([leaf], lr=LR, fused=True)
         ms, plain_ms, lib_ms = cuda_ms([kernel, plain, lib.step], 10)
-        log(f"  adam_tril_ K={K} M={M}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms")
+        dev_ms = device_ms(kernel, ("adam_tril_kernel",), 10)
+        log(f"  adam_tril_ K={K} M={M}: kernel {ms:.4f} ms ({dev_ms:.4f} ms "
+            f"device), plain {plain_ms:.4f} ms, torch.optim.Adam(fused=True) "
+            f"{lib_ms:.4f} ms")
         tri = K * M * (M + 1) // 2
         return {"adam_tril_": {"max_abs_err": max(errs), "ms": ms,
-                               "plain_ms": plain_ms,
+                               "device_ms": dev_ms, "plain_ms": plain_ms,
                                **bound(7 * 4 * tri, 10 * tri, "fp32"),
                                "library_ms": lib_ms}}
 
@@ -1445,6 +1622,7 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("tril_da_kernel<false", "tril dA (#7)"),
             ("tri_mm_kernel", "pullback products tt / nt (#10/#11)"),
             ("trimm_split_kernel", "pullback split (#10/#11)"),
+            ("kxz_vjp", "kxz pullback (#1)"),
             ("kxz_kernel", "kxz (#1)"),
             ("wide_solve_kernel<true", "trsm transposed, wide B (#4)"),
             ("wide_solve_kernel<false", "trsm, wide B (#2)"),
@@ -1461,11 +1639,16 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
 
 
 def profile_step(step, model, gen, X, Y, top=12):
-    """torch.profiler over one train step: device ms by op family and by
-    kernel (kernel-level events only, so nothing is counted twice)."""
+    """torch.profiler over one train step: device ms and launches by op
+    family and by kernel (kernel-level events only, so nothing is counted
+    twice).  Every K(X, Z) of the step (Kmn and Kmm of each layer, and the
+    unwhitened KL's Kmm) was pulled back by the pullback kernel, and no eager
+    exp, clamp_min or where ran over an operand of [M, M] entries or more
+    (the dense formula's autograd)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         step(model, gen, X, Y)
         torch.cuda.synchronize()
     rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
@@ -1473,17 +1656,32 @@ def profile_step(step, model, gen, X, Y, top=12):
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
     total = sum(r[0] for r in rows)
-    families: dict[str, float] = {}
-    for ms, _, key in rows:
+    families: dict[str, list] = {}
+    for ms, count, key in rows:
         fam = next((f for sub, f in FAMILIES if sub in key),
                    "elementwise and other")
-        families[fam] = families.get(fam, 0.0) + ms
-    log(f"profiled step: {total:.3f} ms of kernel time; by family (ms, share):")
-    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms:9.3f} {ms / total:6.1%}  {fam}")
+        acc = families.setdefault(fam, [0.0, 0])
+        acc[0] += ms
+        acc[1] += count
+    log(f"profiled step: {total:.3f} ms of kernel time; by family (ms, share, "
+        f"launches):")
+    for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {ms:9.3f} {ms / total:6.1%} {count:6d}  {fam}")
     log("largest kernels (self device ms, calls, name):")
     for ms, count, key in rows[:top]:
         log(f"  {ms:9.3f} {count:5d}  {key[:100]}")
+    M = model.pred_layer.q_mu.raw.shape[0]
+    eager = [(ev.key, ev.input_shapes, ev.count)
+             for ev in prof.key_averages(group_by_input_shape=True)
+             if ev.key in ("aten::exp", "aten::clamp_min", "aten::where")
+             and any(s and math.prod(s) >= M * M for s in ev.input_shapes)]
+    forwards = sum(n for _, n, key in rows if "kxz_kernel<" in key)
+    pullbacks = sum(n for _, n, key in rows if "kxz_vjp_kernel" in key)
+    check(0 < forwards == pullbacks and not eager,
+          f"every K(X, Z) of the step was pulled back by kxz_vjp_kernel "
+          f"({forwards} forward launches, {pullbacks} pullbacks) and no eager "
+          f"exp / clamp_min / where ran over [{M}, {M}] entries or more "
+          f"({eager[:3]})")
     solver = [key for _, _, key in rows if "potrf" in key or "getrf" in key]
     check(not solver, f"no cuSOLVER factorization in the profiled step "
           f"({len(solver)} kernels: {[k[:60] for k in solver[:3]]})")
@@ -2168,14 +2366,15 @@ def phase_joint_grad_reference(pt, dev="cuda", M=M_REF, N=N_GRID_REF,
 def phase_against(parent: str) -> None:
     """The Cholesky (#15/#16), the tril forward (#3/#5), the tril backward
     (#6-#9), the TRSM (#2: the inverse, [4096, 8] and [4096, 8192]; #4 at
-    both widths), the Cholesky pullback's products (#10/#11) and the fused
-    q_sqrt quadratic (#17) of this checkout against those of another one
+    both widths), the Cholesky pullback's products (#10/#11), the fused
+    q_sqrt quadratic (#17), K(X, Z) and its pullback (#1) and the KL
+    forward sums (#12) of this checkout against those of another one
     (``parent``, e.g. a checkout of the parent commit), both packages
     loaded in this process: CUDA-event medians at the main shapes, timed
     in turns (parent, this, this, parent) over the same inputs, the
     factors, the forwards' and the solves' outputs compared bit for bit,
     the backwards' within 1e-3 of the parent's maximum, #10/#11 within
-    1e-4 of it and #17's within rtol 1e-4."""
+    1e-4 of it and #17's within rtol 1e-4 (#1 and #12: against_kxz_kl)."""
     import importlib
     import importlib.util
     from modulatedgps_tpu_torch.ops import (chol_kernel, quad_kernel, tril_kernel,
@@ -2195,10 +2394,17 @@ def phase_against(parent: str) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(3)
 
-    def turns(what, parent_fn, this_fn, reps):
+    def turns(what, parent_fn, this_fn, reps, device=False):
+        """Per-call event medians in turns; with device, also the device
+        time of each call's kernels (torch.profiler), in the same order."""
         p1, t1, t2, p2 = cuda_ms([parent_fn, this_fn, this_fn, parent_fn], reps)
         log(f"  {what}: parent {p1:.4f} / {p2:.4f} ms, this {t1:.4f} / "
             f"{t2:.4f} ms (parent, this, this, parent; {reps} turns)")
+        if device:
+            p1, t1, t2, p2 = (device_ms(fn, ("",), reps) for fn in
+                              (parent_fn, this_fn, this_fn, parent_fn))
+            log(f"  {what}, device: parent {p1:.4f} / {p2:.4f} ms, this "
+                f"{t1:.4f} / {t2:.4f} ms (every kernel of the call)")
 
     for M in (M_REF, M_FULL):
         for name, layer in (("assign", ASSIGN_SE), ("pred", PRED_SE)):
@@ -2314,6 +2520,88 @@ def phase_against(parent: str) -> None:
     turns(f"qsqrt_sq_colsum K={K_EXPERTS} M={M} N={BATCH}",
           lambda: pquad.qsqrt_sq_colsum(S16, A),
           lambda: quad_kernel.qsqrt_sq_colsum(S16, A), 5)
+    del S16, A, got, want
+    against_kxz_kl(importlib, dev, g, turns)
+
+
+def against_kxz_kl(importlib, dev, g, turns):
+    """--against, #1 and #12: the forward bit-equal to the parent's at Kmn
+    [4096, 8192] and Kmm [4096, 4096] (both kinds), and at D = 130 on the
+    generic path; the pullback of Z, l
+    and var within KXZ_VJP_TOL of the largest entry of the parent's eager
+    gradient; the KL forward sums within 1e-6 relative of the parent's (the
+    order of summation changed); each timed in turns."""
+    from modulatedgps_tpu_torch.ops import kl_kernel, kxz_kernel
+    pkxz = importlib.import_module("parent_port.ops.kxz_kernel")
+    pkl = importlib.import_module("parent_port.ops.kl_kernel")
+    M = M_FULL
+    Zi = torch.randn(M, D_IN, generator=g).to(dev)
+    Xd = (6 * torch.rand(BATCH, D_IN, generator=g) - 3).to(dev)
+    ls = torch.tensor(PRED_SE[1], device=dev)
+    var = torch.tensor(PRED_SE[0], device=dev)
+    for what, X2 in (("Kmn", Xd), ("Kmm", Zi)):
+        N2 = X2.shape[0]
+        for kind in ("rbf", "matern32"):
+            got = kxz_kernel.kxz(Zi, X2, ls, var, kind=kind)
+            want = pkxz.kxz(Zi, X2, ls, var, kind=kind)
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            check(torch.equal(got, want), f"kxz {what} {kind} [{M}, {N2}]: "
+                  f"bit-equal to the parent's (max |this - parent| {diff:.3e})")
+            del got, want
+        turns(f"kxz {what} rbf [{M}, {N2}]", lambda: pkxz.kxz(Zi, X2, ls, var),
+              lambda: kxz_kernel.kxz(Zi, X2, ls, var), 20, device=True)
+        Kbar = torch.randn(M, N2, generator=g).to(dev)
+        with torch.enable_grad():
+            leaves = [t.clone().requires_grad_() for t in (Zi, ls, var)]
+            x2 = leaves[0] if X2 is Zi else X2
+            graphs = [mod.kxz(leaves[0], x2, leaves[1], leaves[2])
+                      for mod in (pkxz, kxz_kernel)]
+        pull = lambda K: torch.autograd.grad(K, leaves, Kbar, retain_graph=True)
+        want, got = pull(graphs[0]), pull(graphs[1])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("Z", "lengthscales", "variance"), got, want):
+            diff = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(diff <= KXZ_VJP_TOL * scale and finite(a),
+                  f"kxz pullback {what} [{M}, {N2}] {name}: max |this - parent| "
+                  f"{diff:.3e} of max {scale:.3e} ({KXZ_VJP_TOL:g})")
+        turns(f"kxz pullback {what} [{M}, {N2}] (Z, l, var)",
+              lambda: pull(graphs[0]), lambda: pull(graphs[1]), 10, device=True)
+        peaks = []
+        for K in graphs:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pull(K)
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+        log(f"  kxz pullback {what} [{M}, {N2}]: peak memory above the graph "
+            f"{peaks[0]:.1f} MiB (parent) / {peaks[1]:.1f} MiB (this)")
+        del graphs, leaves, Kbar
+    K = K_EXPERTS
+    diag = torch.diag_embed(1.0 + 0.5 * torch.rand(K, M, generator=g))
+    Lq = (torch.tril(0.05 * torch.randn(K, M, M, generator=g), -1) + diag
+          ).to(dev) + nan_above(K, M, dev)
+    got, want = kl_kernel.kl_sq_logdiag(Lq), pkl.kl_sq_logdiag(Lq)
+    torch.cuda.synchronize()
+    rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, want)]
+    check(max(rel) <= 1e-6, f"kl_sq_logdiag K={K} M={M}: relative |this - "
+          f"parent| {rel[0]:.2e} (sum of squares), {rel[1]:.2e} (log sum) "
+          f"(1e-6)")
+    turns(f"kl_sq_logdiag K={K} M={M}", lambda: pkl.kl_sq_logdiag(Lq),
+          lambda: kl_kernel.kl_sq_logdiag(Lq), 20, device=True)
+    # #1's generic path (D over 8, staged a chunk at a time): bit-equal too.
+    Zg = torch.randn(301, 130, generator=g).to(dev)
+    Xg = (6 * torch.rand(77, 130, generator=g) - 3).to(dev)
+    for kind, lsg in (("rbf", torch.tensor(12.0, device=dev)),
+                      ("matern32", torch.tensor(KXZ_WIDE_LS, device=dev))):
+        got = kxz_kernel.kxz(Zg, Xg, lsg, var, kind=kind)
+        want = pkxz.kxz(Zg, Xg, lsg, var, kind=kind)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"kxz generic D {kind} [301, 130]x[77, "
+              f"130]: bit-equal to the parent's (max |this - parent| "
+              f"{float((got - want).abs().max()):.3e})")
 
 
 def main() -> int:

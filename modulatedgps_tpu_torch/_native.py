@@ -32,7 +32,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
-    "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mgp_kxz": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_kxz_vjp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _I, _P),
     "mgp_trsm_lower": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -43,7 +45,8 @@ _SIGNATURES = {
     "mgp_tril_da_w": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mgp_tri_tt": (_P, _P, _P, _P, _I, _I, _P),
     "mgp_tri_nt": (_P, _P, _P, _P, _I, _P),
-    "mgp_kl_fwd": (_P, _P, _P, _I, _I, _P),
+    "mgp_kl_fwd": (_P, _P, _P, _I, _I, _I, _P),
+    "mgp_kl_fwd_scratch": (_I, _P),
     "mgp_kl_bwd": (_P, _P, _P, _I, _I, _P),
     "mgp_adam_tril": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                       _P),

@@ -11,13 +11,23 @@
 // lower triangle once (2.7e8 B, ~0.08 ms at 3.35 TB/s) and the backward reads
 // it and writes the whole [K, M, M] (8.1e8 B, ~0.24 ms); the arithmetic is a
 // few operations a byte.  So both are streaming passes: 16-byte loads and
-// stores, no shared-memory staging, and the strictly-upper half is never read.
+// stores, no shared-memory staging.  No chunk above the diagonal is read; the
+// few entries past the diagonal in the chunk that holds it are dropped.
 //
-// Forward design: block (p, k) sums rows p and M-1-p of Lq[k] up to the
-// diagonal (M+1 entries, so every block has the same work) and writes one fp32
-// partial of each sum; a second one-block pass adds the K*ceil(M/2) partials in
-// a fixed order, in double.  No atomics, so the result is the same bits on
-// every run and a resumed training run reproduces its losses.
+// Forward design: a persistent grid of KL_CTAS_PER_SM 256-thread CTAs an SM,
+// each warp a share of the work items.  An item is the row pair (p, M-1-p) of
+// one Lq[k] up to the diagonal: the two rows hold M+1 entries, so every item
+// is the same number of 16-byte chunks (give or take one) and each warp takes
+// every W-th item (W warps in the grid).  A lane loads 8 chunks of an item
+// before it adds any (eight 16-byte loads in flight), squares and adds them
+// in fp32, and adds each batch into a double.  The lane whose chunk holds a
+// row's diagonal drops the entries past it (loaded with the chunk, never
+// added) and takes the log from the value it loaded: no thread reads the
+// diagonal again.  Each CTA adds its warps' sums in order into one partial;
+// the last CTA to finish (a counter the launcher zeroes first) adds the
+// partials in order, in double.  No float atomics, so the result is the
+// same bits on every run on a card, and a resumed training run reproduces
+// its losses.
 //
 // Backward design: block (i, k) writes row i of dLq[k] whole: the entries up
 // to the diagonal from Lq, the rest as zeros without reading Lq there.  The
@@ -25,13 +35,16 @@
 // writing zeros here is what keeps a torch.empty output safe.  g is read from
 // device memory (a 0-dim tensor), so the host never waits on the card.
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NTHR = 256;
-constexpr int NTHR_FINAL = 1024;
+constexpr int KL_CTAS_PER_SM = 4;   // the forward's persistent grid
+constexpr int KL_UNROLL = 8;        // 16-byte loads a lane keeps in flight
 
 // Sum over the block; the result is valid in thread 0.  Fixed order.
 template <typename T, int N>
@@ -49,55 +62,104 @@ __device__ __forceinline__ T block_sum(T v) {
   return v;
 }
 
-// Sum of squares of row[0 .. n).  vec: the row starts 16-byte aligned.
-__device__ __forceinline__ float row_sumsq(const float* __restrict__ row, int n,
-                                           bool vec) {
-  float s = 0.f;
-  int done = 0;
-  if (vec) {
-    const int n4 = n / 4;
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-    for (int c = threadIdx.x; c < n4; c += NTHR) {
-      const float4 x = row4[c];
-      s += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+// One item's sums for this lane: rows p and q = M-1-p of Lk up to the
+// diagonal, in chunks of CW floats (4: the rows start 16-byte aligned; 1
+// otherwise).  Chunk c < n1 is row p's chunk c, the others row q's.
+template <int CW>
+__device__ __forceinline__ void item_sums(const float* __restrict__ Lk, int M,
+                                          int p, int lane, double& s,
+                                          double& ld) {
+  using V = typename std::conditional<CW == 4, float4, float>::type;
+  const int q = M - 1 - p;
+  const int n1 = p / CW + 1;
+  const int n = n1 + (q != p ? q / CW + 1 : 0);
+  for (int c0 = lane; c0 < n; c0 += 32 * KL_UNROLL) {
+    float v[KL_UNROLL][CW];
+#pragma unroll
+    for (int u = 0; u < KL_UNROLL; ++u) {
+      const int c = c0 + 32 * u;
+      const int row = c < n1 ? p : q;
+      const int cc = c < n1 ? c : c - n1;
+      V x{};
+      if (c < n) x = reinterpret_cast<const V*>(Lk + (size_t)row * M)[cc];
+      memcpy(v[u], &x, sizeof(V));
     }
-    done = n4 * 4;
-  }
-  for (int j = done + threadIdx.x; j < n; j += NTHR) s += row[j] * row[j];
-  return s;
-}
-
-__global__ void __launch_bounds__(NTHR)
-kl_fwd_kernel(const float* __restrict__ Lq, float* __restrict__ partial, int M,
-              bool vec) {
-  const int p = blockIdx.x, k = blockIdx.y;
-  const int q = M - 1 - p;                 // the paired row (q == p: the middle row)
-  const float* Lk = Lq + (size_t)k * M * M;
-  float s = row_sumsq(Lk + (size_t)p * M, p + 1, vec);
-  if (q != p) s += row_sumsq(Lk + (size_t)q * M, q + 1, vec);
-  s = block_sum<float, NTHR>(s);
-  if (threadIdx.x == 0) {
-    float ld = logf(fabsf(Lk[(size_t)p * M + p]));
-    if (q != p) ld += logf(fabsf(Lk[(size_t)q * M + q]));
-    const size_t b = (size_t)k * gridDim.x + p;
-    partial[2 * b] = s;
-    partial[2 * b + 1] = ld;
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < KL_UNROLL; ++u) {
+      const int c = c0 + 32 * u;
+      const int row = c < n1 ? p : q;
+      const int cc = c < n1 ? c : c - n1;
+      if (c < n && cc == row / CW) {        // the chunk holding the diagonal
+        const int e = row - cc * CW;
+#pragma unroll
+        for (int t = 0; t < CW; ++t) {
+          if (t == e) ld += logf(fabsf(v[u][t]));
+          if (t > e) v[u][t] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < CW; ++t) part = fmaf(v[u][t], v[u][t], part);
+    }
+    s += part;
   }
 }
 
-__global__ void __launch_bounds__(NTHR_FINAL)
-kl_fwd_final_kernel(const float* __restrict__ partial, int n, float* __restrict__ out) {
+template <int CW>
+__global__ void __launch_bounds__(NTHR, KL_CTAS_PER_SM)
+kl_fwd_kernel(const float* __restrict__ Lq, double* partial, float* __restrict__ out,
+              int M, int K) {
+  __shared__ double red[2][NTHR / 32];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int P = (M + 1) / 2;                // row pairs of one Lq[k]
+  const long long items = (long long)K * P;
+  const int W = gridDim.x * (NTHR / 32);
   double s = 0.0, ld = 0.0;
-  for (int b = threadIdx.x; b < n; b += NTHR_FINAL) {
-    s += partial[2 * b];
-    ld += partial[2 * b + 1];
+  for (long long it = (long long)blockIdx.x * (NTHR / 32) + warp; it < items;
+       it += W) {
+    const int k = static_cast<int>(it / P), p = static_cast<int>(it % P);
+    item_sums<CW>(Lq + (size_t)k * M * M, M, p, lane, s, ld);
   }
-  s = block_sum<double, NTHR_FINAL>(s);
-  __syncthreads();                         // red[] is reused by the second sum
-  ld = block_sum<double, NTHR_FINAL>(ld);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ld += __shfl_xor_sync(0xffffffffu, ld, o);
+  }
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = ld;
+  }
+  __syncthreads();
+  unsigned int* counter = reinterpret_cast<unsigned int*>(partial + 2 * gridDim.x);
   if (threadIdx.x == 0) {
-    out[0] = static_cast<float>(s);
-    out[1] = static_cast<float>(ld);
+    double cs = 0.0, cl = 0.0;
+#pragma unroll
+    for (int w = 0; w < NTHR / 32; ++w) {
+      cs += red[0][w];
+      cl += red[1][w];
+    }
+    partial[2 * blockIdx.x] = cs;
+    partial[2 * blockIdx.x + 1] = cl;
+    __threadfence();
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The last CTA: the CTAs' partials in order, a lane a stride of them.
+  __threadfence();
+  const volatile double* vp = partial;
+  double ts = 0.0, tl = 0.0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += NTHR) {
+    ts += vp[2 * b];
+    tl += vp[2 * b + 1];
+  }
+  ts = block_sum<double, NTHR>(ts);
+  __syncthreads();                          // red[] is reused by the second sum
+  tl = block_sum<double, NTHR>(tl);
+  if (threadIdx.x == 0) {
+    out[0] = static_cast<float>(ts);
+    out[1] = static_cast<float>(tl);
   }
 }
 
@@ -145,21 +207,37 @@ bool rows_vec(const void* p, int M) {
 
 }  // namespace
 
+// The forward's scratch on card `device`: writes to the int at `slots` its
+// length in f64, two partials for each CTA of the persistent grid (the SMs
+// times KL_CTAS_PER_SM) and the counter's slot.
+extern "C" int mgp_kl_fwd_scratch(int device, void* slots) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *static_cast<int*>(slots) = 2 * sms * KL_CTAS_PER_SM + 1;
+  return 0;
+}
+
 // Lq [K, M, M] f32 (lower triangle read) -> out[0] = sum of squares,
-// out[1] = sum of log|diag|.  partial: scratch of 2 * K * ((M + 1) / 2) f32.
+// out[1] = sum of log|diag|.  partial: the scratch mgp_kl_fwd_scratch sizes,
+// `slots` f64; the grid is its (slots - 1) / 2 CTAs, and the last slot holds
+// the counter, zeroed here.
 extern "C" int mgp_kl_fwd(const void* Lq, void* partial, void* out, int M, int K,
-                          void* stream) {
+                          int slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M > 0 && K > 0) {
-    dim3 grid((M + 1) / 2, K);
-    kl_fwd_kernel<<<grid, NTHR, 0, s>>>(static_cast<const float*>(Lq),
-                                         static_cast<float*>(partial), M,
-                                         rows_vec(Lq, M));
-    const cudaError_t err = cudaGetLastError();
+  const int grid = (slots - 1) / 2;
+  if (M > 0 && K > 0 && grid > 0) {
+    double* part = static_cast<double*>(partial);
+    const cudaError_t err =
+        cudaMemsetAsync(part + 2 * grid, 0, sizeof(unsigned int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kl_fwd_final_kernel<<<1, NTHR_FINAL, 0, s>>>(
-        static_cast<const float*>(partial), K * ((M + 1) / 2),
-        static_cast<float*>(out));
+    if (rows_vec(Lq, M))
+      kl_fwd_kernel<4><<<grid, NTHR, 0, s>>>(static_cast<const float*>(Lq), part,
+                                             static_cast<float*>(out), M, K);
+    else
+      kl_fwd_kernel<1><<<grid, NTHR, 0, s>>>(static_cast<const float*>(Lq), part,
+                                             static_cast<float*>(out), M, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

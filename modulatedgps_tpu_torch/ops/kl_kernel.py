@@ -8,8 +8,11 @@ triangle of [K, M, M] once; the backward reads it and writes dLq whole).
 
 The forward's two sums stay on the device as 0-dim tensors, and the
 backward reads its cotangent g from the device, so neither makes the host
-wait.  The forward adds per-block fp32 partials in a fixed order: the same
-inputs give the same bits.  The backward writes exact zeros above the
+wait.  The forward runs a persistent grid of a few CTAs an SM, each warp a
+fixed share of the row pairs, and adds the CTAs' f64 partials in a fixed
+order in its last CTA: the same inputs give the same bits.  The library
+sizes that grid from the card and says how much scratch it needs
+(``fwd_scratch_slots``); the launcher derives the grid from the scratch.  The backward writes exact zeros above the
 diagonal (the TPU kernel left garbage there for a downstream mask).
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
@@ -18,12 +21,24 @@ it launches the kernel or raises.  Every launch adds one to the wrapper's
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _native
 
 __all__ = ["kl_sq_logdiag", "kl_sq_logdiag_plain", "kl_bwd_scale",
-           "kl_bwd_scale_plain", "check_launch_args"]
+           "kl_bwd_scale_plain", "check_launch_args", "fwd_scratch_slots"]
+
+
+def fwd_scratch_slots(device):
+    """The f64 slots of the forward's scratch on the card ``device``: two
+    partials for each CTA of its persistent grid, and the counter's."""
+    slots = ctypes.c_int(0)
+    code = _native.library().mgp_kl_fwd_scratch(device.index,
+                                                 ctypes.addressof(slots))
+    _native.check(code, "kl_sq_logdiag")
+    return slots.value
 
 
 def kl_sq_logdiag_plain(Lq):
@@ -64,11 +79,11 @@ def kl_sq_logdiag(Lq):
         return kl_sq_logdiag_plain(Lq)
     check_launch_args("kl_sq_logdiag", Lq)
     K, M, _ = Lq.shape
-    partial = torch.empty(2 * K * ((M + 1) // 2), dtype=torch.float32,
-                          device=Lq.device)
+    slots = fwd_scratch_slots(Lq.device)
+    partial = torch.empty(slots, dtype=torch.float64, device=Lq.device)
     out = torch.empty(2, dtype=torch.float32, device=Lq.device)
     code = _native.library().mgp_kl_fwd(
-        Lq.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K,
+        Lq.data_ptr(), partial.data_ptr(), out.data_ptr(), M, K, slots,
         _native.stream_ptr(Lq.device))
     _native.check(code, "kl_sq_logdiag")
     kl_sq_logdiag.launches += 1
