@@ -2,6 +2,9 @@
 
 Mirrors modulatedgps_tpu/likelihoods/base.py.  Shapes: Fmu, Fvar [..., N, K]
 latent marginals, Y [N, D] observations (D=1 targets, or D=K).
+``variational_expectations`` returns [..., N, K] for Gaussian(D=K) and
+[..., N, 1] for MultiClass and Bernoulli with one latent, the shapes the
+SMGP's weighting by W [S, N, K] and sum over K expect.
 """
 from __future__ import annotations
 
@@ -11,6 +14,10 @@ __all__ = ["Likelihood"]
 
 
 class Likelihood(nn.Module):
+    def log_prob(self, F, Y):
+        """log p(Y | F)."""
+        raise NotImplementedError
+
     def variational_expectations(self, Fmu, Fvar, Y):
         """E_{f ~ N(Fmu, Fvar)}[log p(Y | f)]."""
         raise NotImplementedError

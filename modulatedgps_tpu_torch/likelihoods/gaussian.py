@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ..config import default_float
 from ..params import Parameter
 from .base import Likelihood
 
@@ -24,13 +25,25 @@ class Gaussian(Likelihood):
 
     @classmethod
     def create(cls, variance=1.0, D: int | None = None, *,
-               dtype: torch.dtype = torch.float32,
+               dtype: torch.dtype | None = None,
                device: torch.device | str = "cuda") -> "Gaussian":
+        dtype = dtype or default_float()
         v = torch.as_tensor(variance, dtype=dtype, device=device)
         if D is not None:
             v = v * torch.ones((1, D), dtype=dtype, device=device)
         return cls(Parameter.from_value(v, "positive", dtype=dtype,
                                         device=device))
+
+    def log_prob(self, F, Y):
+        """log N(Y; F, s2), elementwise."""
+        var = self.variance.value
+        return -_HALF_LOG_2PI - 0.5 * torch.log(var) - 0.5 * (Y - F).square() / var
+
+    def conditional_mean(self, F):
+        return F
+
+    def conditional_variance(self, F):
+        return self.variance.value.expand(F.shape)
 
     def variational_expectations(self, Fmu, Fvar, Y):
         """-0.5 log 2pi - 0.5 log s2 - 0.5 ((Y - Fmu)^2 + Fvar) / s2."""

@@ -46,9 +46,11 @@ class PrecomputedPosterior(nn.Module):
     float64 (the CPU reference) keeps S and the dense form."""
 
     def __init__(self, kernel: Kernel, Z: torch.Tensor, alpha: torch.Tensor,
-                 Linv: torch.Tensor, S: torch.Tensor):
+                 Linv: torch.Tensor, S: torch.Tensor,
+                 mean_function: nn.Module | None = None):
         super().__init__()
         self.kernel = kernel
+        self.mean_function = mean_function      # the layer's; None = Zero
         self.register_buffer("Z", Z)            # [M, D]
         self.register_buffer("alpha", alpha)    # [M, K]
         self.register_buffer("Linv", Linv)      # [M, M] lower
@@ -74,6 +76,8 @@ class PrecomputedPosterior(nn.Module):
         Kzx = self.kernel.K(self.Z, Xnew)                      # [M, N]
         Kdiag = self.kernel.K_diag(Xnew)                       # [N]
         fmean = Kzx.T @ self.alpha                             # [N, K]
+        if self.mean_function is not None:
+            fmean = fmean + self.mean_function(Xnew)
         A = self.Linv @ Kzx                                    # [M, N]
         if self.S16 is not None:
             quad = qsqrt_sq_colsum(self.S16, A)                # [K, N]
@@ -98,17 +102,17 @@ def precompute_posterior(svgp) -> PrecomputedPosterior:
         q_mu = Linv @ q_mu
         S = Linv @ S
     return PrecomputedPosterior(svgp.kernel, svgp.Z.value, Linv.T @ q_mu,
-                                Linv, S)
+                                Linv, S, svgp.mean_function)
 
 
 def precompute_smgp(model):
-    """The same SMGP with both layers folded into cached posteriors.
+    """The same model (an SMGP or an SMGPModified, of the same class, with
+    every other attribute shared) with both layers folded into cached
+    posteriors.
 
-    It serves predict_y, predict_assign and predict_density with no Cholesky
-    or solves per batch.  Re-precompute after any parameter update.
+    It serves predict_y, predict_assign, predict_density and the draws with
+    no Cholesky or solves per batch.  Re-precompute after any parameter
+    update.
     """
-    from .smgp import SMGP
-    return SMGP(model.likelihood, precompute_posterior(model.pred_layer),
-                precompute_posterior(model.assign_layer), K=model.K,
-                num_samples=model.num_samples, num_data=model.num_data,
-                temperature=model.temperature)
+    return model.replace(pred_layer=precompute_posterior(model.pred_layer),
+                         assign_layer=precompute_posterior(model.assign_layer))

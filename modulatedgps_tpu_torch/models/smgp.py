@@ -1,8 +1,9 @@
 """Mixture of SVGPs with GP-modulated data association (SMGP).
 
-Mirrors modulatedgps_tpu/models/smgp.py:74-212 (noise, the doubly
-stochastic ELBO) and its prediction and sampling methods.  K experts share the inputs;
-the prediction layer gives per-expert latents f_k and the assignment layer
+Mirrors modulatedgps_tpu/models/smgp.py:74-237 (noise, the doubly
+stochastic ELBO, SMGPModified's two-term one) and its prediction and
+sampling methods.  K experts share the inputs; the prediction layer gives
+per-expert latents f_k and the assignment layer
 gives the logits of the mixture weights, drawn through a temperature-1e-2
 Gumbel-softmax to soft one-hot weights W [S, N, K].  The ELBO is
 
@@ -15,12 +16,17 @@ Gaussian and Gumbel draws per sample.  A layer is anything with
 conditional) or, for prediction only, a ``PrecomputedPosterior`` (see
 posterior.precompute_smgp).
 
-At tau = 1e-2 the exact gradient through non-dominant experts underflows
-float32 (weights below ~1e-38 flush to 0; JAX models/smgp.py:63-70): f32
-assignment-layer gradients differ from f64 ones there by design.
+At tau = 1e-2 the float32 assignment-layer gradients land far from float64
+ones (up to ~7e-2 of their scale at M=48, against ~2e-4 for the JAX
+package's float32 CPU path): W is one-hot to float32 rounding, and the
+bf16 q_sqrt variance term (the TPU route's precision class) moves the
+sampled logits enough to flip near-ties (tests/test_torch_f32_assign_grad.py;
+the underflow of non-dominant weights, JAX models/smgp.py:63-70, is not
+what swamps them).
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -30,7 +36,7 @@ from ..likelihoods.base import Likelihood
 from ..ops.sampling import gumbel, reparameterize
 from ..utils.shapes import ShapeChecker
 
-__all__ = ["SGP", "SMGP"]
+__all__ = ["SGP", "SMGP", "SMGPModified"]
 
 
 class SGP(nn.Module):
@@ -43,6 +49,16 @@ class SGP(nn.Module):
         self.pred_layer = pred_layer
         self.num_samples = num_samples
         self.num_data = num_data
+
+    def replace(self, **changes):
+        """A shallow copy of the same class with ``changes`` set (the JAX
+        package's Module.replace): submodules not named are shared."""
+        new = copy.copy(self)
+        for table in ("_parameters", "_buffers", "_modules"):
+            object.__setattr__(new, table, dict(getattr(self, table)))
+        for name, value in changes.items():
+            setattr(new, name, value)
+        return new
 
     def predict_y(self, Xnew, S: int = 1):
         """Per-expert predictive moments, tiled to [S, N, K] (rows are
@@ -147,3 +163,36 @@ class SMGP(SGP):
         samples_y = (reparameterize(mean, var, z) * W).sum(2, keepdim=True)
         samples_f = (reparameterize(Fmu, Fvar, z) * W).sum(2, keepdim=True)
         return samples_y, samples_f
+
+
+class SMGPModified(SMGP):
+    """An SMGP with a second likelihood on the assignment layer's latents,
+    the multiclass demos' model (smgp.py:215-237).  Its data-fit term is
+
+        logsumexp_S(sum_k VE_a,k W - log S) + logsumexp_S(sum_k VE_y,k W - log S)
+
+    with VE_a the assignment likelihood's expectations under the assignment
+    marginals and VE_y the likelihood's under the prediction marginals,
+    both of the same Y.  Y is cast once to the marginals' dtype, so integer
+    labels and a float64 Y alike meet float32 marginals as float32."""
+
+    def __init__(self, likelihood: Likelihood, pred_layer: nn.Module,
+                 assign_layer: nn.Module, *,
+                 assign_likelihood: Likelihood | None = None, K: int = 3,
+                 num_samples: int = 1, num_data: int | None = None,
+                 temperature: float = 1e-2):
+        super().__init__(likelihood, pred_layer, assign_layer, K=K,
+                         num_samples=num_samples, num_data=num_data,
+                         temperature=temperature)
+        self.assign_likelihood = assign_likelihood
+
+    def E_log_p_from_marginals(self, fmu, fvar, amu, avar, z, g, Y):
+        logS = math.log(z.shape[0])
+        Y = Y.to(fmu.dtype)
+        W = self._W_from_marginals(amu, avar, z, g)              # [S, N, K]
+        ve_a = self.assign_likelihood.variational_expectations(amu, avar, Y)
+        E_log_p_A = (ve_a[None] * W).sum(2) - logS               # [S, N]
+        ve_y = self.likelihood.variational_expectations(fmu, fvar, Y)
+        E_log_p_y = (ve_y[None] * W).sum(2) - logS               # [S, N]
+        return (torch.logsumexp(E_log_p_A, dim=0)
+                + torch.logsumexp(E_log_p_y, dim=0))             # [N]

@@ -1,7 +1,8 @@
 """Sparse variational GP layer (inducing points, whitened or not).
 
-Mirrors modulatedgps_tpu/models/svgp.py: ``create``, ``kuu``, ``predict_f``
-(marginal or joint, over [..., N, D] inputs), ``predict_f_samples`` and
+Mirrors modulatedgps_tpu/models/svgp.py: ``create``, ``num_inducing``,
+``kuu``, ``predict_f`` (marginal or joint, over [..., N, D] inputs, plus
+the mean function if there is one), ``predict_f_samples`` and
 ``prior_kl``.  Kmn is built as kernel.K(Z, Xnew) and Kmm = K(Z, Z) +
 jitter I.  State: Z [M, D], q_mu [M, K], q_sqrt tril [K, M, M] (init: K
 stacked identities) or diagonal [M, K]; with ``whiten`` (the default) q(u)
@@ -13,35 +14,29 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config import default_jitter
+from ..config import default_float, default_jitter
 from ..ops.conditionals import base_conditional, expand_independent_outputs
 from ..ops.kernels import Kernel
 from ..ops.kl import gauss_kl
 from ..ops.linalg import add_jitter
+from ..ops.linalg import cholesky_nan as _cholesky_nan
 from ..params import Parameter
 from ..utils.shapes import ShapeChecker
 
 __all__ = ["SVGP"]
 
 
-def _cholesky_nan(A):
-    """torch.linalg.cholesky_ex of [..., N, N] with NaN from the first
-    failed column on in each matrix (cholesky_factor_plain's masking)."""
-    L, info = torch.linalg.cholesky_ex(A)
-    cols = torch.arange(A.shape[-1], device=A.device)
-    failed = (info[..., None] > 0) & (cols >= info[..., None] - 1)
-    return torch.where(failed[..., None, :], torch.nan, L)
-
-
 class SVGP(nn.Module):
     def __init__(self, kernel: Kernel, Z: Parameter, q_mu: Parameter,
-                 q_sqrt: Parameter, *, whiten: bool = True,
-                 jitter: float | None = None):
+                 q_sqrt: Parameter, *, mean_function: nn.Module | None = None,
+                 whiten: bool = True, jitter: float | None = None):
         super().__init__()
         self.kernel = kernel
         self.Z = Z
         self.q_mu = q_mu
         self.q_sqrt = q_sqrt
+        # None = Zero: no add (ops/mean_functions.py)
+        self.mean_function = mean_function
         self.whiten = whiten
         # None = default_jitter(dtype).  A whitened model must be evaluated
         # at the jitter it was trained with, whatever dtype serves it.
@@ -50,9 +45,11 @@ class SVGP(nn.Module):
     @classmethod
     def create(cls, kernel: Kernel, inducing_points, num_latent_gps: int = 1,
                *, whiten: bool = True, q_diag: bool = False,
+               mean_function: nn.Module | None = None,
                jitter: float | None = None,
-               dtype: torch.dtype = torch.float32,
+               dtype: torch.dtype | None = None,
                device: torch.device | str = "cuda") -> "SVGP":
+        dtype = dtype or default_float()
         Z = torch.as_tensor(inducing_points, dtype=dtype, device=device)
         M, K = Z.shape[0], num_latent_gps
         q_mu = torch.zeros((M, K), dtype=dtype, device=device)
@@ -63,12 +60,19 @@ class SVGP(nn.Module):
             eye = torch.eye(M, dtype=dtype, device=device)
             q_sqrt = Parameter(eye.expand(K, M, M).clone(), "tril")
         return cls(kernel, Parameter(Z), Parameter(q_mu), q_sqrt,
-                   whiten=whiten, jitter=jitter)
+                   mean_function=mean_function, whiten=whiten, jitter=jitter)
 
-    def kuu(self) -> torch.Tensor:
-        """K(Z, Z) + jitter I."""
+    @property
+    def num_inducing(self) -> int:
+        return self.Z.shape[0]
+
+    def kuu(self, jitter: float | None = None) -> torch.Tensor:
+        """K(Z, Z) + jitter I; ``jitter`` overrides the layer's own."""
         Z = self.Z.value
-        jitter = default_jitter(Z.dtype) if self.jitter is None else self.jitter
+        if jitter is None:
+            jitter = self.jitter
+        if jitter is None:
+            jitter = default_jitter(Z.dtype)
         eye = torch.eye(Z.shape[0], dtype=Z.dtype, device=Z.device)
         return self.kernel.K(Z) + jitter * eye
 
@@ -97,6 +101,8 @@ class SVGP(nn.Module):
         fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
                                        q_sqrt=self.q_sqrt.value,
                                        full_cov=full_cov, white=self.whiten)
+        if self.mean_function is not None:
+            fmean = fmean + self.mean_function(Xnew)
         if lead:
             fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
             fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
@@ -114,7 +120,8 @@ class SVGP(nn.Module):
         NaN from its failed column on, per latent (the draws of that latent
         are then NaN, as JAX's are), with no exception and no read of the
         info code back to the host.  This batched [K, N, N] factor is the
-        one Cholesky that stays a library call (torch.linalg.cholesky_ex):
+        one Cholesky, with ``reparameterize(full_cov=True)``'s, that
+        stays a library call (ops.linalg.cholesky_nan):
         the JAX package's Pallas routing sends batched inputs to XLA too,
         and its autograd carries path B's draws.  ``full_cov=False``
         draws each point from its marginal.  z is drawn from ``generator``,

@@ -1,7 +1,8 @@
 """Sparse-GP conditional: Cholesky, triangular solves, matmuls.
 
-Mirrors modulatedgps_tpu/ops/conditionals.py: ``base_conditional`` and
-``conditional_from_chol``, whitened or not, for a lower-triangular
+Mirrors modulatedgps_tpu/ops/conditionals.py: ``base_conditional``,
+``conditional_from_chol`` and ``sgp_conditional`` (the kernel build and the
+conditional of one layer), whitened or not, for a lower-triangular
 [K, M, M], diagonal [M, K] or absent q_sqrt, marginal (full_cov=False) or
 joint over the N points (full_cov=True):
 
@@ -32,7 +33,7 @@ from .linalg import cholesky_with_inv, solve_lower, whiten_solve
 from .tril_kernel import atl_matmul, atl_sq_colsum
 
 __all__ = ["base_conditional", "conditional_from_chol",
-           "expand_independent_outputs"]
+           "expand_independent_outputs", "sgp_conditional"]
 
 
 def expand_independent_outputs(fvar: torch.Tensor, full_cov: bool,
@@ -110,3 +111,16 @@ def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white, inv=None):
     if full_cov:
         return fmean, fvar[None] + B @ B.transpose(-1, -2)     # [K, N, N]
     return fmean, (fvar[None, :] + B.square().sum(-1)).T
+
+
+def sgp_conditional(kernel, Z, Xnew, q_mu, q_sqrt, *, jitter: float,
+                    full_cov: bool = False, white: bool = True):
+    """One SVGP layer's conditional from its kernel: Kmm = K(Z, Z) +
+    jitter I, Kmn = K(Z, Xnew), Knn = K(Xnew) (its diagonal unless
+    ``full_cov``), then base_conditional."""
+    Kmm = kernel.K(Z) + jitter * torch.eye(Z.shape[-2], dtype=Z.dtype,
+                                           device=Z.device)
+    Kmn = kernel.K(Z, Xnew)
+    Knn = kernel(Xnew, full_cov=full_cov)
+    return base_conditional(Kmn, Kmm, Knn, q_mu, q_sqrt=q_sqrt,
+                            full_cov=full_cov, white=white)

@@ -29,7 +29,7 @@ from .chol_kernel import cholesky_factor
 from .trimm_kernel import chol_pullback_structured
 from .trsm_kernel import trsm_lower, trsm_lower_t
 
-__all__ = ["cholesky", "cholesky_with_inv", "add_jitter",
+__all__ = ["cholesky", "cholesky_with_inv", "cholesky_nan", "add_jitter",
            "triangular_inverse", "solve_lower", "whiten_solve"]
 
 
@@ -62,6 +62,18 @@ class _Cholesky(torch.autograd.Function):
         L, Inv = ctx.saved_tensors
         return chol_pullback_structured(L, triangular_inverse(L, Inv),
                                         Lbar.contiguous())
+
+
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.cholesky_ex of [..., N, N] with NaN from the first
+    failed column on in each matrix (cholesky_factor_plain's masking): no
+    exception and no read of the info code back to the host.  The batched
+    factors of joint draws stay this library call, as the JAX package's
+    Pallas routing sends batched inputs to XLA (pallas_linalg.py:624)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    cols = torch.arange(A.shape[-1], device=A.device)
+    failed = (info[..., None] > 0) & (cols >= info[..., None] - 1)
+    return torch.where(failed[..., None, :], torch.nan, L)
 
 
 def add_jitter(K: torch.Tensor, jitter: float) -> torch.Tensor:

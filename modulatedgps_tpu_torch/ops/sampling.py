@@ -1,7 +1,7 @@
 """Reparameterized sampling: Gaussian and Gumbel-softmax (relaxed one-hot).
 
-Mirrors modulatedgps_tpu/ops/sampling.py:19-57 (the diagonal
-``reparameterize``, ``gumbel_softmax_logits``, ``relaxed_one_hot``).
+Mirrors modulatedgps_tpu/ops/sampling.py:19-57 (``reparameterize``,
+diagonal or full-covariance, ``gumbel_softmax_logits``, ``relaxed_one_hot``).
 Randomness comes from an explicit ``torch.Generator`` on the device of the
 draw; its numbers differ from JAX's threefry, so parity tests hand both
 packages the same noise.  Gumbel noise is -log(-log U), U uniform on
@@ -13,18 +13,31 @@ from __future__ import annotations
 import torch
 
 from ..config import default_jitter
+from .linalg import add_jitter, cholesky_nan
 
 __all__ = ["reparameterize", "gumbel", "gumbel_softmax_logits",
            "relaxed_one_hot"]
 
 
 def reparameterize(mean: torch.Tensor, var: torch.Tensor | None,
-                   z: torch.Tensor, *, jitter: float | None = None):
-    """mean + z sqrt(var + jitter); z ~ N(0, 1) gives a draw of N(mean, var)."""
+                   z: torch.Tensor, *, full_cov: bool = False,
+                   jitter: float | None = None):
+    """mean + z sqrt(var + jitter); z ~ N(0, 1) gives a draw of N(mean, var).
+
+    ``full_cov``: mean and z [..., N, D], var [..., N, N, D], one joint
+    draw per output d, mean + chol(var_d + jitter I) z_d.  That batched
+    [..., D, N, N] factor is ops.linalg.cholesky_nan, a library call (the
+    JAX package sends batched factors to XLA too): a covariance that is not
+    positive definite gives NaN from its failed column on, no exception.
+    """
     if var is None:
         return mean
     jit = default_jitter(mean.dtype) if jitter is None else jitter
-    return mean + z * torch.sqrt(var + jit)
+    if not full_cov:
+        return mean + z * torch.sqrt(var + jit)
+    chol = cholesky_nan(add_jitter(torch.movedim(var, -1, -3), jit))
+    f = mean.transpose(-1, -2) + (chol @ z.transpose(-1, -2)[..., None])[..., 0]
+    return f.transpose(-1, -2)
 
 
 def gumbel(generator: torch.Generator, shape, dtype: torch.dtype):

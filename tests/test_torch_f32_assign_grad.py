@@ -1,0 +1,161 @@
+"""float32 assignment-layer gradients at the north-star temperature 1e-2:
+the port against the JAX package and both against float64, on the CPU.
+
+One SMGP (Gaussian experts) and one SMGPModified (MultiClass experts, the
+Gaussian assignment likelihood), M=48 inducing points, K=3, D=2, N=160,
+S=8, at a perturbed state, jitter 1e-4 everywhere (the float32 floor, set
+in both packages' config so the draws' jitter matches too).  The same
+numpy noise (z, g) goes to E_log_p_Y_from_noise in four runs: JAX float32
+and float64, the port float32 and float64.  Each assignment-layer raw leaf
+is scored by max|grad - ref| / max|f64 grad|.
+
+What the runs show (the numbers the asserts below bound):
+
+- The two float64 paths agree to ~1e-12.
+- JAX's float32 CPU path stays within ~2e-4 of float64 on every
+  assignment leaf: the underflow of non-dominant weights at tau = 1e-2
+  (modulatedgps_tpu/models/smgp.py:63-70) does not swamp these gradients at
+  this size.
+- The port's float32 path lands 15-900x further from both (up to 6.8e-2
+  on the SMGP's assignment q_sqrt).  Most of that is the bf16 B of the
+  q_sqrt variance term (tril_kernel.atl_sq_colsum, the precision class of
+  the JAX package's TPU route, which its CPU float32 route does not take):
+  with that term in float32 the port lands within ~3e-3 of float64.
+
+So the two float32 paths do not agree with each other more closely than
+with float64: the loss is the port's bf16 variance term, not the
+reference's underflow.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modulatedgps_tpu import config as jconfig
+from modulatedgps_tpu.likelihoods import Gaussian as JGaussian
+from modulatedgps_tpu.likelihoods import MultiClass as JMultiClass
+from modulatedgps_tpu.models import SMGP as JSMGP
+from modulatedgps_tpu.models import SMGPModified as JSMGPModified
+from modulatedgps_tpu.models import SVGP as JSVGP
+from modulatedgps_tpu.ops import kernels as jk
+
+import modulatedgps_tpu_torch as pt
+from modulatedgps_tpu_torch.ops import conditionals
+
+M, K, D, N, S = 48, 3, 2, 160, 8
+TAU, JITTER, NUM_DATA = 1e-2, 1e-4, 1000
+# (variance, lengthscale) of the prediction and assignment layers
+LAYERS = ((0.5, 0.5), (0.1, 1.0))
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(path, simple=True, separator="."):
+            np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _inputs(kind):
+    rng = np.random.default_rng(0)
+    state = []
+    for _ in LAYERS:
+        q_sqrt = np.eye(M)[None] + 0.05 * np.tril(rng.normal(size=(K, M, M)))
+        idx = np.arange(M)
+        q_sqrt[:, idx, idx] = np.abs(q_sqrt[:, idx, idx])
+        state.append((rng.normal(size=(M, D)), 0.5 * rng.normal(size=(M, K)),
+                      q_sqrt))
+    X = rng.uniform(-3, 3, size=(N, D))
+    Y = (rng.normal(size=(N, 1)) if kind == "smgp"
+         else rng.integers(0, K, size=(N, 1)).astype(np.float64))
+    z = rng.normal(size=(S, N, K))
+    g = rng.gumbel(size=(S, N, K))
+    return state, X, Y, z, g
+
+
+def _jax_model(kind, state, dtype):
+    layers = []
+    for (var, ls), (Z, q_mu, q_sqrt) in zip(LAYERS, state):
+        layer = JSVGP.create(jk.SquaredExponential.create(var, ls, dtype=dtype),
+                             Z, num_latent_gps=K, dtype=dtype)
+        layers.append(layer.replace(
+            q_mu=layer.q_mu.replace_raw(jnp.asarray(q_mu, dtype)),
+            q_sqrt=layer.q_sqrt.replace_raw(jnp.asarray(q_sqrt, dtype))))
+    common = dict(pred_layer=layers[0], assign_layer=layers[1], K=K,
+                  num_samples=S, num_data=NUM_DATA, temperature=TAU)
+    if kind == "smgp":
+        return JSMGP(likelihood=JGaussian.create(0.5, D=K, dtype=dtype),
+                     **common)
+    return JSMGPModified(likelihood=JMultiClass.create(K),
+                         assign_likelihood=JGaussian.create(0.5, D=K,
+                                                            dtype=dtype),
+                         **common)
+
+
+def _jax_grads(kind, dtype):
+    state, X, Y, z, g = _inputs(kind)
+    model = _jax_model(kind, state, dtype)
+    arr = lambda a: jnp.asarray(a, dtype)
+
+    def loss(m):
+        kl = m.pred_layer.prior_kl() + m.assign_layer.prior_kl()
+        return -(jnp.mean(m.E_log_p_Y_from_noise(arr(X), arr(Y), arr(z),
+                                                 arr(g)))
+                 - kl / m.num_data)
+
+    with jconfig.config_context(jitter=JITTER):
+        grads = jax.grad(loss)(model)
+    return {k: v.astype(np.float64) for k, v in _leaves(grads).items()}
+
+
+def _port_grads(kind, dtype):
+    state, X, Y, z, g = _inputs(kind)
+    arrays = _leaves(_jax_model(kind, state, jnp.float64))
+    opts = dict(dtype=dtype, device="cpu")
+    layers = [pt.SVGP.create(pt.SquaredExponential.create(**opts),
+                             np.zeros((M, D)), K, jitter=JITTER, **opts)
+              for _ in LAYERS]
+    common = dict(K=K, num_samples=S, num_data=NUM_DATA, temperature=TAU)
+    if kind == "smgp":
+        model = pt.SMGP(pt.Gaussian.create(0.5, D=K, **opts), *layers,
+                        **common)
+    else:
+        model = pt.SMGPModified(
+            pt.MultiClass.create(K), *layers,
+            assign_likelihood=pt.Gaussian.create(0.5, D=K, **opts), **common)
+    pt.load_numpy_(model, arrays)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    with pt.config_context(jitter=JITTER):
+        kl = model.pred_layer.prior_kl() + model.assign_layer.prior_kl()
+        loss = -(model.E_log_p_Y_from_noise(t(X), t(Y), t(z), t(g)).mean()
+                 - kl / model.num_data)
+        loss.backward()
+    return {n: p.grad.double().numpy() for n, p in model.named_parameters()}
+
+
+def _distances(got, ref, scale):
+    return {k: float(np.abs(got[k] - ref[k]).max() / np.abs(scale[k]).max())
+            for k in ref if k.startswith("assign_")}
+
+
+@pytest.mark.parametrize("kind", ["smgp", "modified"])
+def test_f32_assignment_gradients_at_tau_1e2(kind, monkeypatch):
+    j64, j32 = _jax_grads(kind, jnp.float64), _jax_grads(kind, jnp.float32)
+    t64, t32 = _port_grads(kind, torch.float64), _port_grads(kind, torch.float32)
+    monkeypatch.setattr(conditionals, "atl_sq_colsum",
+                        lambda A, L: (A.T[None] @ torch.tril(L)).square()
+                        .sum(-1))
+    t32_f32b = _port_grads(kind, torch.float32)
+    table = {"port f64 - JAX f64": _distances(t64, j64, j64),
+             "JAX f32 - f64": _distances(j32, j64, j64),
+             "port f32 - f64": _distances(t32, j64, j64),
+             "port f32 - JAX f32": _distances(t32, j32, j64),
+             "port f32, f32 B - f64": _distances(t32_f32b, j64, j64)}
+    for row, dist in table.items():
+        print(kind, row, {k: f"{v:.2e}" for k, v in dist.items()})
+    assert all(np.isfinite(v).all() for g in (j32, t32) for v in g.values())
+    assert max(table["port f64 - JAX f64"].values()) < 1e-9
+    assert max(table["JAX f32 - f64"].values()) < 5e-3
+    assert max(table["port f32, f32 B - f64"].values()) < 5e-2
+    # the two float32 paths are as far apart as the port's is from float64
+    for k, d in table["port f32 - JAX f32"].items():
+        assert d >= 0.5 * table["port f32 - f64"][k], k
