@@ -39,6 +39,7 @@ _SIGNATURES = {
     "mgp_trsm_lower_t": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "mgp_tril_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_fwd_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mgp_tril_fwd_split": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_dl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_da": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mgp_tril_dl_w": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -39,49 +39,10 @@ namespace {
 
 using namespace mgp;
 
-struct RowSquareSums {
-  float* part;   // [K, P, N]
-  int N, P;
-  __device__ __forceinline__ void operator()(float (&acc)[TP_NACC], int k, int p, int n0,
-                                             int wg, int lt) const {
-    const int lane = lt % 32, wq = lt / 32;
-    const int row = n0 + 64 * wg + 16 * wq + lane / 4;
-    float s[2] = {0.f, 0.f};
-#pragma unroll
-    for (int c = 0; c < TP_BP / 8; ++c)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = acc[4 * c + 2 * h + e];
-          s[h] = fmaf(v, v, s[h]);
-        }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
-      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
-      const int n = row + 8 * h;
-      if (lane % 4 == 0 && n < N) part[((size_t)k * P + p) * N + n] = s[h];
-    }
-  }
-};
-
 __global__ void __launch_bounds__(TP_NTHR, 1)
 quad_kernel(const __grid_constant__ CUtensorMap mapA, const __grid_constant__ CUtensorMap mapS,
             float* __restrict__ part, int M, int N, int K) {
   tril_product(&mapA, &mapS, M, N, K, RowSquareSums{part, N, (M + TP_BP - 1) / TP_BP});
-}
-
-// out[k, n] = sum_p part[k, p, n], p in order.
-__global__ void quad_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                int K, int P, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= K * N) return;
-  const int k = i / N, n = i - k * N;
-  const float* src = part + (size_t)k * P * N + n;
-  float v = src[0];
-  for (int p = 1; p < P; ++p) v += src[(size_t)p * N];
-  out[i] = v;
 }
 
 }  // namespace
@@ -92,12 +53,9 @@ __global__ void quad_sum_kernel(const float* __restrict__ part, float* __restric
 extern "C" int mgp_qsqrt_sq_colsum(const void* S, const void* A, void* part, void* out,
                                    int M, int N, int K, int lda, int lds, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
-  const int P = (M + TP_BP - 1) / TP_BP;
   int err = launch_tril_product(quad_kernel, A, S, M, N, K, lda, lds, stream,
                                 static_cast<float*>(part), M, N, K);
   if (err != 0) return err;
-  const int n = K * N;
-  quad_sum_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), K, P, N);
-  return static_cast<int>(cudaGetLastError());
+  return launch_partial_sums(static_cast<const float*>(part), static_cast<float*>(out), K, M,
+                             N, stream);
 }

@@ -5,8 +5,20 @@
 //   mgp_tril_fwd      B16 = bf16(B)  (the diagonal variance, atl_sq_colsum)
 //   mgp_tril_fwd_f32  B   in f32     (the full covariance, atl_matmul)
 //
+// and a third runs the same product as a 3-pass bf16 split of fp32 operands
+// (tril_product.cuh's NPASS = 3: A_hi L_hi + A_lo L_hi + A_hi L_lo in one
+// fp32 accumulator):
+//
+//   mgp_tril_fwd_split  B in f32 and extra[k, n] = sum_m' B^2 from the fp32
+//                       accumulators (atl_sq_colsum with split: the SMGP's
+//                       layers)
+//
 // Replaces modulatedgps_tpu/ops/pallas_tril.py:_k_fwd_b16 (_fwd_pallas_b16)
-// and _k_fwd (_fwd_pallas).
+// and _k_fwd (_fwd_pallas).  The split's precision class is the JAX
+// package's for its Cholesky pullback (pallas_trimm._dot3): at tau = 1e-2
+// the mixture weights are one-hot to f32 rounding, and one bf16 pass in a
+// layer's variance decides near-ties between experts.  It does three times
+// the tensor-core work of one pass over the same tiles.
 //
 // Bound on the H100: tensor-core math.  At M=4096, N=8192, K=8 the lower
 // triangle alone is K*N*M^2/2 = 5.5e11 multiply-adds (1.1 TFLOP, 1.1 ms at
@@ -101,6 +113,25 @@ struct StoreB {
   }
 };
 
+// The split forward's epilogue: B in f32, and the row square sums.
+struct StoreBSquareSums {
+  StoreB<float> store;
+  RowSquareSums sums;
+  __device__ __forceinline__ void operator()(float (&acc)[TP_NACC], int k, int p, int n0,
+                                             int wg, int lt) const {
+    store(acc, k, p, n0, wg, lt);
+    sums(acc, k, p, n0, wg, lt);
+  }
+};
+
+__global__ void __launch_bounds__(TP_NTHR, 1)
+tril_fwd_split_kernel(const __grid_constant__ CUtensorMap mapA,
+                      const __grid_constant__ CUtensorMap mapL, float* __restrict__ B,
+                      float* __restrict__ part, int M, int N, int K) {
+  tril_product<3>(&mapA, &mapL, M, N, K,
+                  StoreBSquareSums{{B, M, N}, {part, N, (M + TP_BP - 1) / TP_BP}});
+}
+
 template <typename OutT>
 __global__ void __launch_bounds__(TP_NTHR, 1)
 tril_fwd_kernel(const __grid_constant__ CUtensorMap mapA,
@@ -131,4 +162,20 @@ extern "C" int mgp_tril_fwd(const void* A, const void* L, void* B, int M, int N,
 extern "C" int mgp_tril_fwd_f32(const void* A, const void* L, void* B, int M, int N, int K,
                                 int lda, int ldl, void* stream) {
   return launch<float>(A, L, B, M, N, K, lda, ldl, stream);
+}
+
+// A2 [2, M, lda] bf16 (A_hi, then A_lo; columns past N zero), L2 [2K, ldl,
+// ldl] bf16 (L_hi, then L_lo; upper triangles ignored; rows and columns
+// past M zero), lda and ldl multiples of 8; part [K, ceil(M / 256), N] f32
+// scratch -> B [K, N, M] f32 and extra [K, N] f32.
+extern "C" int mgp_tril_fwd_split(const void* A2, const void* L2, void* B, void* part,
+                                  void* extra, int M, int N, int K, int lda, int ldl,
+                                  void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  int err = launch_tril_product<3>(tril_fwd_split_kernel, A2, L2, M, N, K, lda, ldl, stream,
+                                   static_cast<float*>(B), static_cast<float*>(part), M, N,
+                                   K);
+  if (err != 0) return err;
+  return launch_partial_sums(static_cast<const float*>(part), static_cast<float*>(extra), K,
+                             M, N, stream);
 }

@@ -1,8 +1,15 @@
 // The tril forward's product on Hopper, P[k, n, m'] = sum_{m >= m'} A[m, n]
 // L[k, m, m'] from bf16 operands with fp32 accumulators, shared by
-// tril_fwd.cu (#3/#5, which stores P) and quad.cu (#17, which squares and
-// sums its rows); each passes an epilogue that receives one finished output
-// tile in registers.  The design is described in tril_fwd.cu.
+// tril_fwd.cu (#3/#5, which stores P, and the 3-pass split forward, which
+// stores P and squares and sums its rows) and quad.cu (#17, which squares
+// and sums its rows); each passes an epilogue that receives one finished
+// output tile in registers.  The design is described in tril_fwd.cu.
+//
+// NPASS = 3 is the 3-pass bf16 split of fp32 operands, A = A_hi + A_lo and
+// L = L_hi + L_lo: P = A_hi L_hi + A_lo L_hi + A_hi L_lo, the three m-runs
+// of a tile accumulated one after the other into the same fp32 registers
+// (A_lo L_lo, ~2^-16 of P, is dropped).  A's map is then 3-D over
+// [2, M, lda] (hi, lo) and L's over [2K, ldl, ldl] (hi at k, lo at K + k).
 #pragma once
 
 #include "hopper.cuh"
@@ -36,7 +43,7 @@ __device__ __forceinline__ void tile_coords(int t, int K, int ntn, int& p, int& 
 // + (lt % 32) / 4 + 8 h, column 8 c + 2 (lt % 4) + e of warpgroup wg's
 // 64 x TP_BP slab of tile (k, m'-tile p, n-rows n0 ..).  Columns m' >= M
 // and rows n >= N hold zeros (the operands' padding and TMA's fill).
-template <class Epilogue>
+template <int NPASS = 1, class Epilogue>
 __device__ __forceinline__ void tril_product(const CUtensorMap* mapA, const CUtensorMap* mapL,
                                              int M, int N, int K, const Epilogue& epi) {
   extern __shared__ uint8_t smem_raw[];
@@ -65,15 +72,24 @@ __device__ __forceinline__ void tril_product(const CUtensorMap* mapA, const CUte
         int p, k, nt;
         tile_coords(t, K, ntn, p, k, nt);
         const int p0 = p * TP_BP, n0 = nt * TP_BN;
-        for (int m0 = p0; m0 < M; m0 += TP_BK) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], TP_STAGE_BYTES);
-          uint8_t* st = smem + stage * TP_STAGE_BYTES;
-          tma_load_2d(st, mapA, &full[stage], n0, m0);
-          tma_load_2d(st + CHUNK, mapA, &full[stage], n0 + BOX, m0);
-          for (int h = 0; h < TP_LBOXES; ++h)
-            tma_load_3d(st + (2 + h) * CHUNK, mapL, &full[stage], p0 + h * BOX, m0, k);
-          if (++stage == TP_STAGES) { stage = 0; phase ^= 1; }
+        for (int pass = 0; pass < NPASS; ++pass) {
+          const int ja = pass == 1;                  // A_lo on the second pass
+          const int kl = k + (pass == 2 ? K : 0);    // L_lo on the third
+          for (int m0 = p0; m0 < M; m0 += TP_BK) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], TP_STAGE_BYTES);
+            uint8_t* st = smem + stage * TP_STAGE_BYTES;
+            if (NPASS == 1) {
+              tma_load_2d(st, mapA, &full[stage], n0, m0);
+              tma_load_2d(st + CHUNK, mapA, &full[stage], n0 + BOX, m0);
+            } else {
+              tma_load_3d(st, mapA, &full[stage], n0, m0, ja);
+              tma_load_3d(st + CHUNK, mapA, &full[stage], n0 + BOX, m0, ja);
+            }
+            for (int h = 0; h < TP_LBOXES; ++h)
+              tma_load_3d(st + (2 + h) * CHUNK, mapL, &full[stage], p0 + h * BOX, m0, kl);
+            if (++stage == TP_STAGES) { stage = 0; phase ^= 1; }
+          }
         }
       }
     }
@@ -92,6 +108,7 @@ __device__ __forceinline__ void tril_product(const CUtensorMap* mapA, const CUte
 #pragma unroll
     for (int i = 0; i < TP_NACC; ++i) acc[i] = 0.f;
     int held = -1;                 // the stage the wgmma group in flight reads
+    for (int pass = 0; pass < NPASS; ++pass)
     for (int m0 = p0; m0 < M; m0 += TP_BK) {
       mbar_wait(&full[stage], phase);
       uint8_t* st = smem + stage * TP_STAGE_BYTES;
@@ -126,19 +143,21 @@ __device__ __forceinline__ void tril_product(const CUtensorMap* mapA, const CUte
 
 // Launch `kernel(mapA, mapL, args...)` on a persistent grid (one CTA per SM,
 // at most one per tile) over A [M, lda] and L [K, ldl, ldl] bf16, lda and
-// ldl multiples of 8 with lda >= N and ldl >= M.
-template <typename... KArgs, typename... Args>
+// ldl multiples of 8 with lda >= N and ldl >= M; for NPASS = 3 over A
+// [2, M, lda] and L [2K, ldl, ldl] (the hi parts, then the lo parts).
+template <int NPASS = 1, typename... KArgs, typename... Args>
 int launch_tril_product(void (*kernel)(CUtensorMap, CUtensorMap, KArgs...), const void* A,
                         const void* L, int M, int N, int K, int lda, int ldl, void* stream,
                         Args... args) {
   if (lda % 8 != 0 || ldl % 8 != 0 || lda < N || ldl < M)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int planes = NPASS == 1 ? 1 : 2;
   CUtensorMap mapA, mapL;
-  const cuuint64_t dimsA[2] = {(cuuint64_t)lda, (cuuint64_t)M};
-  const cuuint64_t strideA[1] = {(cuuint64_t)lda * 2};
-  const cuuint64_t dimsL[3] = {(cuuint64_t)ldl, (cuuint64_t)ldl, (cuuint64_t)K};
+  const cuuint64_t dimsA[3] = {(cuuint64_t)lda, (cuuint64_t)M, (cuuint64_t)planes};
+  const cuuint64_t strideA[2] = {(cuuint64_t)lda * 2, (cuuint64_t)lda * M * 2};
+  const cuuint64_t dimsL[3] = {(cuuint64_t)ldl, (cuuint64_t)ldl, (cuuint64_t)K * planes};
   const cuuint64_t strideL[2] = {(cuuint64_t)ldl * 2, (cuuint64_t)ldl * ldl * 2};
-  if (!encode_bf16(&mapA, 2, A, dimsA, strideA, BOX) ||
+  if (!encode_bf16(&mapA, NPASS == 1 ? 2 : 3, A, dimsA, strideA, BOX) ||
       !encode_bf16(&mapL, 3, L, dimsL, strideL, BOX))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -152,6 +171,59 @@ int launch_tril_product(void (*kernel)(CUtensorMap, CUtensorMap, KArgs...), cons
   const int grid = (int)(tiles < sms ? tiles : sms);
   kernel<<<grid, TP_NTHR, TP_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(mapA, mapL,
                                                                               args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An epilogue: each thread squares its fp32 accumulators and sums them
+// along m' for each of its two rows, the four threads of a quad combine
+// theirs with two shuffles, and one lane writes the tile's row sum to part
+// [K, P, N], P = ceil(M / TP_BP); partial_sums_kernel then adds each (k, n)'s
+// partial sums over the m'-tiles in order.  No atomics: two runs give the
+// same bits.
+struct RowSquareSums {
+  float* part;   // [K, P, N]
+  int N, P;
+  __device__ __forceinline__ void operator()(float (&acc)[TP_NACC], int k, int p, int n0,
+                                             int wg, int lt) const {
+    const int lane = lt % 32, wq = lt / 32;
+    const int row = n0 + 64 * wg + 16 * wq + lane / 4;
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < TP_BP / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * c + 2 * h + e];
+          s[h] = fmaf(v, v, s[h]);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+      const int n = row + 8 * h;
+      if (lane % 4 == 0 && n < N) part[((size_t)k * P + p) * N + n] = s[h];
+    }
+  }
+};
+
+// out[k, n] = sum_p part[k, p, n], p in order.
+static __global__ void partial_sums_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out, int K, int P, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= K * N) return;
+  const int k = i / N, n = i - k * N;
+  const float* src = part + (size_t)k * P * N + n;
+  float v = src[0];
+  for (int p = 1; p < P; ++p) v += src[(size_t)p * N];
+  out[i] = v;
+}
+
+inline int launch_partial_sums(const float* part, float* out, int K, int M, int N,
+                               void* stream) {
+  const int n = K * N;
+  partial_sums_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, out, K, (M + TP_BP - 1) / TP_BP, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,13 +16,19 @@ Gaussian and Gumbel draws per sample.  A layer is anything with
 conditional) or, for prediction only, a ``PrecomputedPosterior`` (see
 posterior.precompute_smgp).
 
-At tau = 1e-2 the float32 assignment-layer gradients land far from float64
-ones (up to ~7e-2 of their scale at M=48, against ~2e-4 for the JAX
-package's float32 CPU path): W is one-hot to float32 rounding, and the
-bf16 q_sqrt variance term (the TPU route's precision class) moves the
-sampled logits enough to flip near-ties (tests/test_torch_f32_assign_grad.py;
-the underflow of non-dominant weights, JAX models/smgp.py:63-70, is not
-what swamps them).
+At tau = 1e-2 W is one-hot to float32 rounding, and one bf16 pass in a
+layer's q_sqrt variance term (the TPU route's precision class) moves the
+expected log-likelihoods or the sampled logits enough to flip near-ties:
+the float32 assignment-layer gradients then land up to ~7e-2 of their
+scale off float64 at M=48 (tests/test_torch_f32_assign_grad.py).  So SMGP
+asks its SVGP layers for that term's forward and dA by the 3-pass bf16
+split (``predict_f(split=True)``), which brings every assignment leaf
+within 5e-3.  The SMGP needs it on both layers: its Gaussian expected
+log-likelihoods move with the prediction layer's variance (over eight
+seeds of the M=48 case the split on the assignment layer alone lands a
+median 6.4e-3 off, on both 3.3e-3).  The SMGPModified needs it on its
+assignment layer only: its MultiClass expectations barely move (within
+1.4x of both layers' distance on every seed).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from torch import nn
 from ..likelihoods.base import Likelihood
 from ..ops.sampling import gumbel, reparameterize
 from ..utils.shapes import ShapeChecker
+from .svgp import SVGP
 
 __all__ = ["SGP", "SMGP", "SMGPModified"]
 
@@ -60,10 +67,14 @@ class SGP(nn.Module):
             setattr(new, name, value)
         return new
 
+    def _marginals(self, layer, Xnew):
+        """A layer's marginals at Xnew: ([N, K], [N, K])."""
+        return layer.predict_f(Xnew)
+
     def predict_y(self, Xnew, S: int = 1):
         """Per-expert predictive moments, tiled to [S, N, K] (rows are
         identical across S)."""
-        Fmu, Fvar = self.pred_layer.predict_f(Xnew)
+        Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
         mean, var = self.likelihood.predict_mean_and_var(Fmu, Fvar)
         return mean.expand(S, *mean.shape), var.expand(S, *var.shape)
 
@@ -78,6 +89,14 @@ class SMGP(SGP):
         self.K = K
         self.temperature = temperature
 
+    def _marginals(self, layer, Xnew):
+        """An SVGP layer's marginals with the q_sqrt variance term by the
+        3-pass split (see the module docstring); any other layer's, such as
+        a PrecomputedPosterior's, as it gives them."""
+        if isinstance(layer, SVGP):
+            return layer.predict_f(Xnew, split=True)
+        return layer.predict_f(Xnew)
+
     # -- assignment weights ------------------------------------------------
     def draw_noise(self, generator: torch.Generator, N: int, S: int,
                    dtype: torch.dtype):
@@ -90,13 +109,13 @@ class SMGP(SGP):
 
     def W_from_noise(self, Xnew, z, g):
         """Gumbel-softmax assignment weights W [S, N, K] from given noise."""
-        amu, avar = self.assign_layer.predict_f(Xnew)
+        amu, avar = self._marginals(self.assign_layer, Xnew)
         return self._W_from_marginals(amu, avar, z, g)
 
     def sample_W(self, generator: torch.Generator, Xnew, S: int):
         """S Gumbel-softmax assignment draws W [S, N, K] (smgp.py:97-101),
         from noise drawn as draw_noise draws it."""
-        amu, avar = self.assign_layer.predict_f(Xnew)
+        amu, avar = self._marginals(self.assign_layer, Xnew)
         z, g = self.draw_noise(generator, Xnew.shape[0], S, amu.dtype)
         return self._W_from_marginals(amu, avar, z, g)
 
@@ -111,8 +130,8 @@ class SMGP(SGP):
 
     def E_log_p_Y_from_noise(self, X, Y, z, g):
         """Data-fit term per point [N] from given noise z, g [S, N, K]."""
-        fmu, fvar = self.pred_layer.predict_f(X)
-        amu, avar = self.assign_layer.predict_f(X)
+        fmu, fvar = self._marginals(self.pred_layer, X)
+        amu, avar = self._marginals(self.assign_layer, X)
         return self.E_log_p_from_marginals(fmu, fvar, amu, avar, z, g, Y)
 
     def E_log_p_from_marginals(self, fmu, fvar, amu, avar, z, g, Y):
@@ -140,13 +159,13 @@ class SMGP(SGP):
     # -- prediction --------------------------------------------------------
     def predict_assign(self, Xnew):
         """softmax of the mean assignment logits: [N, K]."""
-        amu, _ = self.assign_layer.predict_f(Xnew)
+        amu, _ = self._marginals(self.assign_layer, Xnew)
         return torch.softmax(amu, dim=-1)
 
     def predict_density(self, Xnew, Ynew):
         """Mixture predictive log-density log sum_k pi_k(x) p_k(y|x): [N]."""
         pi = self.predict_assign(Xnew)                           # [N, K]
-        Fmu, Fvar = self.pred_layer.predict_f(Xnew)
+        Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
         log_pk = self.likelihood.predict_density_per_expert(Fmu, Fvar, Ynew)
         return torch.logsumexp(torch.log(pi + 1e-12) + log_pk, dim=-1)
 
@@ -156,7 +175,7 @@ class SMGP(SGP):
         after it, reused for both the y and the f draws as the reference
         does."""
         W = self.sample_W(generator, Xnew, S)                    # [S, N, K]
-        Fmu, Fvar = self.pred_layer.predict_f(Xnew)              # [N, K]
+        Fmu, Fvar = self._marginals(self.pred_layer, Xnew)       # [N, K]
         mean, var = self.likelihood.predict_mean_and_var(Fmu, Fvar)
         z = torch.randn((S, *Fmu.shape), generator=generator, dtype=Fmu.dtype,
                         device=generator.device)
@@ -185,6 +204,13 @@ class SMGPModified(SMGP):
                          num_samples=num_samples, num_data=num_data,
                          temperature=temperature)
         self.assign_likelihood = assign_likelihood
+
+    def _marginals(self, layer, Xnew):
+        """The 3-pass split variance term on the assignment layer only (see
+        the module docstring)."""
+        if isinstance(layer, SVGP) and layer is self.assign_layer:
+            return layer.predict_f(Xnew, split=True)
+        return layer.predict_f(Xnew)
 
     def E_log_p_from_marginals(self, fmu, fvar, amu, avar, z, g, Y):
         logS = math.log(z.shape[0])

@@ -77,10 +77,13 @@ class SVGP(nn.Module):
         return self.kernel.K(Z) + jitter * eye
 
     def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False,
-                  full_output_cov: bool = False):
+                  full_output_cov: bool = False, split: bool = False):
         """Posterior q(f(Xnew)) at Xnew [..., N, D]: the mean [..., N, K]
         and the marginal variances [..., N, K], or with ``full_cov`` the
         covariance over the N points per latent, [..., K, N, N].
+        ``split`` takes a float32 marginal variance's q_sqrt term by the
+        3-pass bf16 split instead of one bf16 pass
+        (tril_kernel.atl_sq_colsum): SMGP asks for it.
 
         Leading dimensions are independent batches, as JAX's vmap makes
         them: marginals are taken on all points at once, a joint
@@ -100,7 +103,8 @@ class SVGP(nn.Module):
         Knn = self.kernel(Xnew, full_cov=full_cov)
         fmean, fvar = base_conditional(Kmn, Kmm, Knn, self.q_mu.value,
                                        q_sqrt=self.q_sqrt.value,
-                                       full_cov=full_cov, white=self.whiten)
+                                       full_cov=full_cov, white=self.whiten,
+                                       split=split)
         if self.mean_function is not None:
             fmean = fmean + self.mean_function(Xnew)
         if lead:

@@ -19,7 +19,9 @@ the unwhitened one from two exact solves (solve_lower: the forward and the
 transposed TRSM kernels).  For a float32 tril q_sqrt, B goes through the
 bf16 tril kernels, the precision class of the TPU path: the marginal
 through tril_kernel.atl_sq_colsum (B held in bf16; its ~0.4% relative error
-in the q_sqrt term is why fvar is clamped at 1e-12 as in JAX), the joint
+in the q_sqrt term is why fvar is clamped at 1e-12 as in JAX; ``split``
+takes B in f32 from three bf16 passes instead, as the SMGP's layers do),
+the joint
 through tril_kernel.atl_matmul (f32 B from bf16 operands).  The two [N, N]
 products of the joint form stay fp32 matmuls, as JAX leaves them to XLA.
 float64 (the CPU reference) forms B densely in float64.  Every route is
@@ -56,32 +58,37 @@ def expand_independent_outputs(fvar: torch.Tensor, full_cov: bool,
 
 
 def base_conditional(Kmn, Kmm, Knn, q_mu, *, q_sqrt=None,
-                     full_cov: bool = False, white: bool = True):
+                     full_cov: bool = False, white: bool = True,
+                     split: bool = False):
     """q(f) = N(fmean, fvar) of an SVGP: fmean [N, K] and fvar [N, K]
     (full_cov=False) or [K, N, N] (full_cov=True).
 
     Kmn [M, N], Kmm [M, M], Knn [N] (the diagonal) or [N, N] (full_cov),
-    q_mu [M, K].
+    q_mu [M, K].  ``split`` takes a float32 tril q_sqrt's marginal variance
+    term by three bf16 passes (tril_kernel.atl_sq_colsum).
     """
     if white:
         return _conditional_tail(whiten_solve(Kmm, Kmn), None, Knn, q_mu,
-                                 q_sqrt=q_sqrt, full_cov=full_cov, white=True)
+                                 q_sqrt=q_sqrt, full_cov=full_cov, white=True,
+                                 split=split)
     Lm, inv = cholesky_with_inv(Kmm)
     return conditional_from_chol(Kmn, Lm, Knn, q_mu, q_sqrt=q_sqrt,
-                                 full_cov=full_cov, white=False, inv=inv)
+                                 full_cov=full_cov, white=False, inv=inv,
+                                 split=split)
 
 
 def conditional_from_chol(Kmn, Lm, Knn, q_mu, *, q_sqrt=None,
                           full_cov: bool = False, white: bool = True,
-                          inv=None):
+                          inv=None, split: bool = False):
     """base_conditional with the Cholesky factor Lm of Kmm given (and
     ``inv``, the inverses of its diagonal blocks, if the caller has them)."""
     return _conditional_tail(solve_lower(Lm, Kmn, inv=inv), Lm, Knn, q_mu,
                              q_sqrt=q_sqrt, full_cov=full_cov, white=white,
-                             inv=inv)
+                             inv=inv, split=split)
 
 
-def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white, inv=None):
+def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white, inv=None,
+                      split=False):
     """Everything downstream of the whitened feature map A = Lm^-1 Kmn; Lm
     (and inv) are read only for the unwhitened second solve."""
     if full_cov:
@@ -99,7 +106,7 @@ def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white, inv=None):
         B = q_sqrt.T[:, None, :] * A.T[None]                   # [K, N, M]
     elif q_sqrt.ndim == 3:                                     # tril [K, M, M]
         if A.dtype == torch.float32 and not full_cov:
-            extra = atl_sq_colsum(A, q_sqrt)                   # [K, N]
+            extra = atl_sq_colsum(A, q_sqrt, split)            # [K, N]
             fvar = (fvar[None, :] + extra).clamp_min(1e-12)
             return fmean, fvar.T
         if A.dtype == torch.float32:

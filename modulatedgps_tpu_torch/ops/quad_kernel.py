@@ -29,12 +29,10 @@ from __future__ import annotations
 import torch
 
 from .. import _native
-from .tril_kernel import _tma_operands
+from .tril_kernel import TILE_P, _tma_operands
 
 __all__ = ["qsqrt_sq_colsum", "qsqrt_sq_colsum_plain", "check_launch_args",
            "TILE_P"]
-
-TILE_P = 256   # m' columns of csrc/quad.cu's output tile: part's middle axis
 
 
 def qsqrt_sq_colsum_plain(S, A):

@@ -27,10 +27,24 @@ As in JAX, the bf16 casts happen in ``atl_sq_colsum`` and ``atl_matmul``,
 and the square-sum over m' runs outside the kernel: B16 stays the forward
 kernel's output because the backward kernels read it.
 
-Each wrapper (``tril_sq_fwd``, ``tril_fwd_f32``, ``tril_dl``, ``tril_da``,
-``tril_sq_dl``, ``tril_sq_da``) takes its plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.  Every launch
-adds one to the wrapper's ``launches``.
+``atl_sq_colsum(A, L, split=True)`` takes the same function at a higher
+precision, which SMGP asks for on both its layers and SMGPModified on its
+assignment layer (models/smgp.py): at tau = 1e-2 the mixture weights are
+one-hot to f32 rounding, and one bf16 pass in a layer's variance moves the
+float32 assignment gradients 2e-2 to 7e-2 of their scale off float64
+(tests/test_torch_f32_assign_grad.py).  Its forward (``tril_sq_fwd_split``:
+the same kernel run as three bf16 passes, A_hi L_hi + A_lo L_hi + A_hi
+L_lo, into one fp32 accumulator) stores B in f32 and sums its squares from
+the fp32 accumulators; its backward splits W = B G into W_hi + W_lo and
+runs dA as the 3-pass sum on ``tril_da`` (the three passes as 3K latents:
+[L_hi; L_lo; L_hi] against [W_hi; W_hi; W_lo]) and dL in one pass
+(``tril_dl`` on W_hi): the cheapest split found that keeps every
+assignment leaf within 5e-3 of float64 there (a one-pass dA does not).
+
+Each wrapper (``tril_sq_fwd``, ``tril_fwd_f32``, ``tril_sq_fwd_split``,
+``tril_dl``, ``tril_da``, ``tril_sq_dl``, ``tril_sq_da``) takes its plain
+version only for CPU tensors; for CUDA tensors it launches the kernel or
+raises.  Every launch adds one to the wrapper's ``launches``.
 """
 from __future__ import annotations
 
@@ -38,8 +52,11 @@ import torch
 
 from .. import _native
 
+TILE_P = 256   # m' columns of the product's output tile: part's middle axis
+
 __all__ = ["tril_sq_fwd", "tril_sq_fwd_plain", "tril_fwd_f32",
-           "tril_fwd_f32_plain", "tril_dl", "tril_dl_plain", "tril_da",
+           "tril_fwd_f32_plain", "tril_sq_fwd_split", "tril_sq_fwd_split_plain",
+           "split_bf16", "tril_dl", "tril_dl_plain", "tril_da",
            "tril_da_plain", "tril_sq_dl", "tril_sq_dl_plain", "tril_sq_da",
            "tril_sq_da_plain", "atl_sq_colsum", "atl_matmul",
            "check_launch_args", "check_bwd_launch_args"]
@@ -53,6 +70,25 @@ def tril_fwd_f32_plain(A16, L16):
 def tril_sq_fwd_plain(A16, L16):
     """bf16(A^T tril(L)) with fp32 accumulation: [M, N], [K, M, M] -> [K, N, M]."""
     return tril_fwd_f32_plain(A16, L16).to(torch.bfloat16)
+
+
+def tril_sq_fwd_split_plain(A2, L2):
+    """The 3-pass split product with fp32 accumulation and its row square
+    sums: A2 [2, M, N] (A_hi, A_lo), L2 [2K, M, M] (L_hi, L_lo) -> B =
+    A_hi^T tril(L_hi) + A_lo^T tril(L_hi) + A_hi^T tril(L_lo) [K, N, M] f32
+    and extra = sum_m' B^2 [K, N] f32."""
+    K = L2.shape[0] // 2
+    B = (tril_fwd_f32_plain(A2[0], L2[:K]) + tril_fwd_f32_plain(A2[1], L2[:K])
+         + tril_fwd_f32_plain(A2[0], L2[K:]))
+    return B, B.square().sum(-1)
+
+
+def split_bf16(x, out):
+    """Write x's bf16 split into out[0] (hi = bf16(x)) and out[1] (lo =
+    bf16(x - hi)); returns out."""
+    out[0].copy_(x)
+    torch.sub(x, out[0], out=out[1])
+    return out
 
 
 def _scaled(B16, G):
@@ -172,6 +208,35 @@ def tril_fwd_f32(A16, L16):
     return B
 
 
+def tril_sq_fwd_split(A2, L2):
+    """(B, extra): B[k, n, m'] = sum_{m >= m'} (A_hi[m, n] L_hi[k, m, m'] +
+    A_lo[m, n] L_hi[k, m, m'] + A_hi[m, n] L_lo[k, m, m']) in f32 and
+    extra[k, n] = sum_m' B[k, n, m']^2 from the fp32 sums, from A2 [2, M, N]
+    bf16 (A_hi, A_lo) and L2 [2K, M, M] bf16 (L_hi, L_lo; upper triangles
+    ignored)."""
+    if (A2.ndim != 3 or A2.shape[0] != 2 or L2.ndim != 3
+            or L2.shape[0] % 2 or L2.shape[1:] != (A2.shape[1],) * 2):
+        raise ValueError(f"tril_sq_fwd_split: expected [2, M, N] and [2K, M, M], "
+                         f"got {tuple(A2.shape)} and {tuple(L2.shape)}")
+    if not _check_device("tril_sq_fwd_split", A2):
+        return tril_sq_fwd_split_plain(A2, L2)
+    check_launch_args(A2, L2, "tril_sq_fwd_split")
+    _, M, N = A2.shape
+    K = L2.shape[0] // 2
+    A2, L2 = _tma_operands(A2, L2)
+    B = torch.empty((K, N, M), dtype=torch.float32, device=A2.device)
+    part = torch.empty((K, -(-M // TILE_P), N), dtype=torch.float32,
+                       device=A2.device)
+    extra = torch.empty((K, N), dtype=torch.float32, device=A2.device)
+    code = _native.library().mgp_tril_fwd_split(
+        A2.data_ptr(), L2.data_ptr(), B.data_ptr(), part.data_ptr(),
+        extra.data_ptr(), M, N, K, A2.shape[-1], L2.shape[-1],
+        _native.stream_ptr(A2.device))
+    _native.check(code, "tril_sq_fwd_split")
+    tril_sq_fwd_split.launches += 1
+    return B, extra
+
+
 def _check_bwd_shapes(what, operand, X16, B16, G=None):
     """(K, N, M) of B16 or W16 [K, N, M], checked against the operand (A16
     [M, N] or L16 [K, M, M]) and, where given, G [K, N]."""
@@ -261,39 +326,75 @@ def tril_sq_da(L16, B16, G):
 
 tril_sq_fwd.launches = 0
 tril_fwd_f32.launches = 0
+tril_sq_fwd_split.launches = 0
 tril_dl.launches = 0
 tril_da.launches = 0
 tril_sq_dl.launches = 0
 tril_sq_da.launches = 0
 
 
+def _split_operands(A, L):
+    """A2 = [A_hi; A_lo] [2, M, N] and L3 = [L_hi; L_lo; L_hi] [3K, M, M]
+    bf16: the forward's operands and the split dA's."""
+    K, M, _ = L.shape
+    A2 = split_bf16(A, torch.empty((2, *A.shape), dtype=torch.bfloat16,
+                                   device=A.device))
+    L3 = torch.empty((3 * K, M, M), dtype=torch.bfloat16, device=L.device)
+    split_bf16(L, L3[:2 * K].view(2, K, M, M))
+    L3[2 * K:].copy_(L3[:K])
+    return A2, L3
+
+
 class _AtlSqColsum(torch.autograd.Function):
-    """pallas_tril.atl_sq_colsum's custom VJP (:561-597): the forward keeps
-    (A16, L16, B16); the backward scales by G = 2 gbar inside the dL / dA
-    kernels."""
+    """pallas_tril.atl_sq_colsum's custom VJP (:561-597), in one bf16 pass
+    or in the 3-pass split (``split``).
+
+    One pass: the forward keeps (A16, L16, B16); the backward scales by G =
+    2 gbar inside the dL / dA kernels (#8/#9).  The split: the forward keeps
+    (A_hi, L3, B in f32); the backward forms W = B G in f32, splits it into
+    W3 = [W_hi; W_hi; W_lo] and runs dA = sum over the 3K latents of
+    tril(L3) W3^T (the dA kernel of atl_matmul, #7) and dL = tril(A_hi
+    W_hi) in one pass (#6).
+    """
 
     @staticmethod
-    def forward(ctx, A, L):
-        A16 = A.to(torch.bfloat16).contiguous()
-        L16 = L.to(torch.bfloat16).contiguous()
-        B16 = tril_sq_fwd(A16, L16)
-        ctx.save_for_backward(A16, L16, B16)
-        return B16.float().square().sum(-1)
+    def forward(ctx, A, L, split):
+        ctx.split = split
+        if not split:
+            A16 = A.to(torch.bfloat16).contiguous()
+            L16 = L.to(torch.bfloat16).contiguous()
+            B16 = tril_sq_fwd(A16, L16)
+            ctx.save_for_backward(A16, L16, B16)
+            return B16.float().square().sum(-1)
+        K = L.shape[0]
+        A2, L3 = _split_operands(A, L)
+        B, extra = tril_sq_fwd_split(A2, L3[:2 * K])
+        ctx.save_for_backward(A2[0], L3, B)
+        return extra
 
     @staticmethod
     def backward(ctx, gbar):
-        A16, L16, B16 = ctx.saved_tensors
+        A16, L16, B = ctx.saved_tensors
         G = (2.0 * gbar).float().contiguous()
-        dA = tril_sq_da(L16, B16, G) if ctx.needs_input_grad[0] else None
-        dL = tril_sq_dl(A16, B16, G) if ctx.needs_input_grad[1] else None
-        return dA, dL
+        if not ctx.split:
+            dA = tril_sq_da(L16, B, G) if ctx.needs_input_grad[0] else None
+            dL = tril_sq_dl(A16, B, G) if ctx.needs_input_grad[1] else None
+            return dA, dL, None
+        K, N, M = B.shape
+        W3 = torch.empty((3 * K, N, M), dtype=torch.bfloat16, device=B.device)
+        split_bf16(B * G[:, :, None], W3[K:].view(2, K, N, M))
+        W3[:K].copy_(W3[K:2 * K])
+        dA = tril_da(L16, W3) if ctx.needs_input_grad[0] else None
+        dL = tril_dl(A16, W3[:K]) if ctx.needs_input_grad[1] else None
+        return dA, dL, None
 
 
-def atl_sq_colsum(A, L):
-    """extra[k, n] = sum_m' (A^T tril L_k)[n, m']^2 with B held in bf16:
-    A [M, N], L [K, M, M] (lower triangle read) -> [K, N] fp32, with its
-    gradient through the dL / dA kernels (dA returned as fp32)."""
-    return _AtlSqColsum.apply(A, L)
+def atl_sq_colsum(A, L, split=False):
+    """extra[k, n] = sum_m' (A^T tril L_k)[n, m']^2: A [M, N], L [K, M, M]
+    (lower triangle read) -> [K, N] fp32, with its gradient through the dL /
+    dA kernels (dA returned as fp32).  B is held in bf16 from one bf16 pass,
+    or with ``split`` taken in f32 from three (dA by three passes too)."""
+    return _AtlSqColsum.apply(A, L, bool(split))
 
 
 class _AtlMatmul(torch.autograd.Function):

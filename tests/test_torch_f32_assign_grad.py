@@ -16,15 +16,20 @@ What the runs show (the numbers the asserts below bound):
   assignment leaf: the underflow of non-dominant weights at tau = 1e-2
   (modulatedgps_tpu/models/smgp.py:63-70) does not swamp these gradients at
   this size.
-- The port's float32 path lands 15-900x further from both (up to 6.8e-2
-  on the SMGP's assignment q_sqrt).  Most of that is the bf16 B of the
-  q_sqrt variance term (tril_kernel.atl_sq_colsum, the precision class of
-  the JAX package's TPU route, which its CPU float32 route does not take):
-  with that term in float32 the port lands within ~3e-3 of float64.
+- The port's shipped float32 path lands within 2.2e-3 (SMGP) and 2.5e-3
+  (SMGPModified) of float64: SMGP asks for the 3-pass bf16 split of the q_sqrt
+  variance term (its forward and dA) on both its layers
+  (``SVGP.predict_f(split=True)``), SMGPModified on its assignment layer
+  only (test_split_layers_over_seeds: where each model needs it).
+- With that term in one bf16 pass on both layers (the precision class of
+  the JAX package's TPU route, which its CPU float32 route does not take)
+  the port lands up to 6.8e-2 (SMGP) and 1.6e-2 (SMGPModified) off; with
+  B summed in fp32 from the same bf16 operands, still above 5e-3; with
+  it as a dense float32 product, within ~3e-3.
 
-So the two float32 paths do not agree with each other more closely than
-with float64: the loss is the port's bf16 variance term, not the
-reference's underflow.
+The port's remaining distance is its own rounding, not the reference's:
+JAX's float32 path sits ~10x closer to float64, so the two float32 paths
+are as far apart as the port is from float64.
 """
 import jax
 import jax.numpy as jnp
@@ -41,7 +46,7 @@ from modulatedgps_tpu.models import SVGP as JSVGP
 from modulatedgps_tpu.ops import kernels as jk
 
 import modulatedgps_tpu_torch as pt
-from modulatedgps_tpu_torch.ops import conditionals
+from modulatedgps_tpu_torch.ops import conditionals, tril_kernel
 
 M, K, D, N, S = 48, 3, 2, 160, 8
 TAU, JITTER, NUM_DATA = 1e-2, 1e-4, 1000
@@ -55,8 +60,8 @@ def _leaves(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _inputs(kind):
-    rng = np.random.default_rng(0)
+def _inputs(kind, seed=0):
+    rng = np.random.default_rng(seed)
     state = []
     for _ in LAYERS:
         q_sqrt = np.eye(M)[None] + 0.05 * np.tril(rng.normal(size=(K, M, M)))
@@ -107,8 +112,8 @@ def _jax_grads(kind, dtype):
     return {k: v.astype(np.float64) for k, v in _leaves(grads).items()}
 
 
-def _port_grads(kind, dtype):
-    state, X, Y, z, g = _inputs(kind)
+def _port_grads(kind, dtype, seed=0):
+    state, X, Y, z, g = _inputs(kind, seed)
     arrays = _leaves(_jax_model(kind, state, jnp.float64))
     opts = dict(dtype=dtype, device="cpu")
     layers = [pt.SVGP.create(pt.SquaredExponential.create(**opts),
@@ -141,14 +146,25 @@ def _distances(got, ref, scale):
 def test_f32_assignment_gradients_at_tau_1e2(kind, monkeypatch):
     j64, j32 = _jax_grads(kind, jnp.float64), _jax_grads(kind, jnp.float32)
     t64, t32 = _port_grads(kind, torch.float64), _port_grads(kind, torch.float32)
+    sq_colsum = tril_kernel.atl_sq_colsum
     monkeypatch.setattr(conditionals, "atl_sq_colsum",
-                        lambda A, L: (A.T[None] @ torch.tril(L)).square()
+                        lambda A, L, split: sq_colsum(A, L, False))
+    t32_one_pass = _port_grads(kind, torch.float32)
+    monkeypatch.setattr(conditionals, "atl_sq_colsum",
+                        lambda A, L, split: tril_kernel.tril_fwd_f32_plain(
+                            A.bfloat16(), L.bfloat16()).square().sum(-1))
+    t32_fp32_sum = _port_grads(kind, torch.float32)
+    monkeypatch.setattr(conditionals, "atl_sq_colsum",
+                        lambda A, L, split: (A.T[None] @ torch.tril(L)).square()
                         .sum(-1))
     t32_f32b = _port_grads(kind, torch.float32)
     table = {"port f64 - JAX f64": _distances(t64, j64, j64),
              "JAX f32 - f64": _distances(j32, j64, j64),
              "port f32 - f64": _distances(t32, j64, j64),
              "port f32 - JAX f32": _distances(t32, j32, j64),
+             "port f32, one bf16 pass - f64": _distances(t32_one_pass, j64, j64),
+             "port f32, bf16 operands, fp32 B - f64":
+                 _distances(t32_fp32_sum, j64, j64),
              "port f32, f32 B - f64": _distances(t32_f32b, j64, j64)}
     for row, dist in table.items():
         print(kind, row, {k: f"{v:.2e}" for k, v in dist.items()})
@@ -156,6 +172,85 @@ def test_f32_assignment_gradients_at_tau_1e2(kind, monkeypatch):
     assert max(table["port f64 - JAX f64"].values()) < 1e-9
     assert max(table["JAX f32 - f64"].values()) < 5e-3
     assert max(table["port f32, f32 B - f64"].values()) < 5e-2
+    # the shipped float32 path keeps every assignment leaf within 5e-3;
+    # B summed in fp32 from one pass of bf16 operands does not
+    assert max(table["port f32 - f64"].values()) < 5e-3
+    assert max(table["port f32, bf16 operands, fp32 B - f64"].values()) > 5e-3
     # the two float32 paths are as far apart as the port's is from float64
     for k, d in table["port f32 - JAX f32"].items():
         assert d >= 0.5 * table["port f32 - f64"][k], k
+
+
+@pytest.mark.parametrize("kind", ["smgp", "modified"])
+def test_models_ask_the_split_of_their_svgp_layers(kind, monkeypatch):
+    """SMGP's marginals take the 3-pass split on both its SVGP layers, the
+    SMGPModified's on its assignment layer only; the same layers used alone
+    keep one bf16 pass (the models set no state on them)."""
+    calls = []
+    sq_colsum = tril_kernel.atl_sq_colsum
+
+    def record(A, L, split):
+        calls.append(split)
+        return sq_colsum(A, L, split)
+
+    monkeypatch.setattr(conditionals, "atl_sq_colsum", record)
+    state, X, Y, z, g = _inputs(kind)
+    opts = dict(dtype=torch.float32, device="cpu")
+    layers = [pt.SVGP.create(pt.SquaredExponential.create(**opts),
+                             state[i][0], K, jitter=JITTER, **opts)
+              for i in range(2)]
+    common = dict(K=K, num_samples=S, num_data=NUM_DATA, temperature=TAU)
+    if kind == "smgp":
+        model = pt.SMGP(pt.Gaussian.create(0.5, D=K, **opts), *layers,
+                        **common)
+    else:
+        model = pt.SMGPModified(
+            pt.MultiClass.create(K), *layers,
+            assign_likelihood=pt.Gaussian.create(0.5, D=K, **opts), **common)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    model.E_log_p_Y_from_noise(t(X), t(Y), t(z), t(g))     # pred, assign
+    model.predict_y(t(X))                                  # pred
+    model.predict_density(t(X), t(Y))                      # assign, pred
+    pred = kind == "smgp"
+    assert calls == [pred, True, pred, True, pred]
+    calls.clear()
+    for layer in layers:
+        layer.predict_f(t(X))
+    assert calls == [False, False]
+
+
+SEEDS = range(8)
+
+
+def _seed_distances(kind, seed):
+    """max over the assignment leaves of |f32 - f64| / max|f64| at state
+    ``seed``, with the split on both layers, the assignment layer only and
+    neither."""
+    import chip_smoke
+    ref = _port_grads(kind, torch.float64, seed)
+    out = {}
+    for which in ("both", "assign", "none"):
+        with chip_smoke.split_layers(pt, which):
+            got = _port_grads(kind, torch.float32, seed)
+        out[which] = max(_distances(got, ref, ref).values())
+    return out
+
+
+@pytest.mark.parametrize("kind", ["smgp", "modified"])
+def test_split_layers_over_seeds(kind):
+    """Where each model needs the split, over eight states: the SMGP on
+    both layers (the assignment layer alone is ~2x further from f64 at the
+    median), the SMGPModified on its assignment layer only (within 1.4x of
+    both layers' at every seed); one bf16 pass is further off than either
+    at the median."""
+    rows = [_seed_distances(kind, seed) for seed in SEEDS]
+    for seed, row in zip(SEEDS, rows):
+        print(kind, seed, {k: f"{v:.2e}" for k, v in row.items()})
+    med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    assert med["none"] > 2 * max(med["both"], med["assign"])
+    if kind == "smgp":
+        assert med["assign"] > 1.5 * med["both"]
+        assert med["both"] < 5e-3
+    else:
+        assert all(r["assign"] <= 1.4 * r["both"] for r in rows)
+        assert med["assign"] < 5e-3

@@ -6,9 +6,11 @@ the port's f64 CPU path at M=1024, batch 2048, S=16.  Here the card is
 stood in for by the port's f32 CPU path, which runs each kernel's plain
 version with the same bf16 / 3-pass arithmetic.  At temperature 1 that
 path lies within GRAD_TOL of f64 on every leaf, and scaling the output of
-any one of kernels #8-#11 by 1.03 moves at least one leaf past its
-tolerance.  At temperature 1e-2 phase 6 checks every leaf but the
-assignment layer's, which f32 swamps there.
+any one of kernels #6, #7, #10 or #11 (the backward kernels of the step:
+SMGP's layers take the q_sqrt variance term's gradient by the 3-pass
+split, on #6/#7) by 1.03 moves at least one leaf past its tolerance.  At
+temperature 1e-2 phase 6 holds the assignment layer's leaves to
+GRAD_TOL_COLD instead.
 
     python tests/test_torch_grad_tolerance.py   # prints every error
 """
@@ -24,8 +26,8 @@ import chip_smoke  # noqa: E402
 import modulatedgps_tpu_torch as pt  # noqa: E402
 from modulatedgps_tpu_torch.ops import tril_kernel, trimm_kernel  # noqa: E402
 
-FAULTS = {"tril_sq_da (#9)": (tril_kernel, "tril_sq_da_plain"),
-          "tril_sq_dl (#8)": (tril_kernel, "tril_sq_dl_plain"),
+FAULTS = {"tril_da (#7)": (tril_kernel, "tril_da_plain"),
+          "tril_dl (#6)": (tril_kernel, "tril_dl_plain"),
           "tri_tt_matmul (#10)": (trimm_kernel, "tri_tt_matmul_plain"),
           "tri_nt_matmul (#11)": (trimm_kernel, "tri_nt_matmul_plain")}
 SCALE = 1.03
@@ -65,15 +67,19 @@ def _faulty_grads(fault):
                                          1.0)
 
 
+def _tolerance(name, tau):
+    if tau < 1.0 and name.startswith("assign_layer."):
+        return chip_smoke.GRAD_TOL_COLD[name]
+    return chip_smoke.GRAD_TOL[name]
+
+
 def test_f32_cpu_path_is_within_grad_tol_of_f64():
-    """Every leaf at temperature 1; at 1e-2 all but the assignment layer's,
-    the leaves phase 6 checks there."""
+    """Every leaf at temperature 1; at 1e-2 the assignment layer's within
+    GRAD_TOL_COLD, the others within GRAD_TOL, as phase 6 checks them."""
     for tau in chip_smoke.GRAD_TEMPERATURES:
         errs = _rel_errors(_grads(torch.float32, tau), tau)
-        over = {name: (err, chip_smoke.GRAD_TOL[name])
-                for name, err in errs.items()
-                if err > chip_smoke.GRAD_TOL[name]
-                and (tau >= 1.0 or not name.startswith("assign_layer."))}
+        over = {name: (err, _tolerance(name, tau))
+                for name, err in errs.items() if err > _tolerance(name, tau)}
         assert not over, f"temperature {tau}: {over}"
 
 
@@ -95,6 +101,6 @@ if __name__ == "__main__":
     for label, (got, tau) in cases.items():
         print(label)
         for name, err in _rel_errors(got, tau).items():
-            tol = chip_smoke.GRAD_TOL[name]
+            tol = _tolerance(name, tau)
             print(f"  {name:38s} {err:.3e}  (tolerance {tol:g})"
                   + ("  over" if err > tol else ""))

@@ -66,7 +66,8 @@ def test_cpu_tensors_launch_nothing():
     assert _native._lib is None
 
 
-KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "tril_sq_fwd", "trsm_lower_t", "tril_fwd_f32",
+KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "tril_sq_fwd", "tril_sq_fwd_split",
+           "trsm_lower_t", "tril_fwd_f32",
            "tril_dl", "tril_da", "tril_sq_dl", "tril_sq_da", "tri_tt_matmul",
            "tri_nt_matmul", "kl_sq_logdiag", "kl_bwd_scale", "adam_tril_",
            "cholesky_factor", "qsqrt_sq_colsum")

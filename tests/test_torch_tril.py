@@ -12,6 +12,11 @@ step moves by ~0.4%.  The gradients (the dL / dA kernels' plain versions
 behind the autograd Function) are held against JAX atl_sq_colsum's custom
 VJP, also in interpret mode, at that suite's gradient tolerance: 3e-2
 (rtol, and atol as a fraction of the largest magnitude).
+
+The 3-pass split (atl_sq_colsum with split, its forward
+tril_sq_fwd_split) is held against the float64 product of the float32
+operands: its B, extra and dA land 10-100x closer to it than one bf16
+pass.
 """
 import contextlib
 import unittest.mock as mock
@@ -24,11 +29,15 @@ import torch
 
 from modulatedgps_tpu.ops import pallas_tril as ptl
 
+from modulatedgps_tpu_torch.ops import tril_kernel
 from modulatedgps_tpu_torch.ops.tril_kernel import (atl_sq_colsum,
+                                                    split_bf16,
                                                     tril_sq_da,
                                                     tril_sq_dl,
                                                     tril_sq_fwd,
-                                                    tril_sq_fwd_plain)
+                                                    tril_sq_fwd_plain,
+                                                    tril_sq_fwd_split,
+                                                    tril_sq_fwd_split_plain)
 
 K, M, N = 2, 768, 300
 
@@ -204,3 +213,147 @@ def test_tril_fwd_launcher_pads_to_tma_strides(M, N):
     assert args[3:] == (M, N, 2, lda, ldl, 77) and args[2] == B.data_ptr()
     assert tril_sq_fwd.launches == before + 1
     tril_sq_fwd.launches = before
+
+
+def _split_operands(A, L):
+    """A2 [2, M, N] and L2 [2K, M, M]: the split forward's operands."""
+    A2, L3 = tril_kernel._split_operands(A, L)
+    return A2, L3[:2 * L.shape[0]]
+
+
+def test_split_bf16_carries_the_low_part(data):
+    A, _ = data
+    At = torch.as_tensor(A)
+    A2 = split_bf16(At, torch.empty((2, M, N), dtype=torch.bfloat16))
+    assert A2[1].float().abs().max() > 0
+    one = (A2[0].double() - At.double()).abs().max()
+    two = (A2[0].double() + A2[1].double() - At.double()).abs().max()
+    assert two <= one * 2 ** -7
+
+
+def test_split_fwd_plain_beats_one_bf16_pass(data):
+    """B and extra of the 3-pass split: within 1e-4 of the f64 product of
+    the fp32 operands (relative to the largest magnitude), at least 30x
+    closer than one bf16 pass."""
+    A, L = data
+    At, Lt = torch.as_tensor(A), torch.as_tensor(L)
+    exact = At.double().T @ torch.tril(Lt.double())
+    B, extra = tril_sq_fwd_split(*_split_operands(At, Lt))
+    one = tril_sq_fwd_plain(At.bfloat16(), Lt.bfloat16()).double()
+    assert B.dtype == torch.float32 and extra.dtype == torch.float32
+    scale = exact.abs().max()
+    err, err1 = ((b.double() - exact).abs().max() / scale for b in (B, one))
+    assert err < 1e-4 and err < err1 / 30
+    e_exact = exact.square().sum(-1)
+    e_err = (extra.double() - e_exact).abs().max() / e_exact.max()
+    e_one = (one.square().sum(-1) - e_exact).abs().max() / e_exact.max()
+    assert e_err < 1e-5 and e_err < e_one / 30
+
+
+def test_split_sq_colsum_value_and_gradients_against_f64(data):
+    """atl_sq_colsum(split=True) against the f64 dense value and gradient:
+    the value within 1e-5, dA (3 passes) within 2e-3 and 10x closer than
+    one pass, dL (one pass) within 3e-2."""
+    A, L = data
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=(K, N)))
+    grads, values = {}, {}
+    split = True
+    for dtype, sp in ((torch.float64, split), (torch.float32, split),
+                      (torch.float32, False)):
+        At = torch.tensor(A, dtype=dtype, requires_grad=True)
+        Lt = torch.tensor(L, dtype=dtype, requires_grad=True)
+        if dtype == torch.float64:
+            value = (At.T[None] @ torch.tril(Lt)).square().sum(-1)
+        else:
+            value = atl_sq_colsum(At, Lt, sp)
+        (w.to(dtype) * value).sum().backward()
+        key = (dtype, sp)
+        values[key] = value.detach().double()
+        grads[key] = (At.grad.double(), Lt.grad.double())
+    exact, (dA64, dL64) = values[(torch.float64, split)], grads[(torch.float64, split)]
+    rel = lambda got, want: float((got - want).abs().max() / want.abs().max())
+    got, (dA, dL) = values[(torch.float32, split)], grads[(torch.float32, split)]
+    one_dA = grads[(torch.float32, False)][0]
+    assert rel(got, exact) < 1e-5
+    assert rel(values[(torch.float32, False)], exact) > 30 * rel(got, exact)
+    assert rel(dL, dL64) < 3e-2 and not torch.triu(dL, 1).any()
+    assert rel(dA, dA64) < 2e-3 and rel(dA, dA64) < rel(one_dA, dA64) / 10
+
+
+@pytest.mark.parametrize("M, N", [(136, 264), (200, 77), (197, 333), (1, 5)])
+def test_tril_fwd_split_launcher_pads_to_tma_strides(M, N):
+    """The split entry point gets A2 [2, M, lda] and L2 [2K, ldl, ldl],
+    zero-padded to multiples of 8 where N or M is not one, B [K, N, M] f32,
+    part [K, ceil(M / 256), N] and extra [K, N]; each call adds one
+    launch."""
+    from modulatedgps_tpu_torch import _native
+    rng = np.random.default_rng(M)
+    A2 = torch.as_tensor(rng.normal(size=(2, M, N))).to(torch.bfloat16)
+    L2 = torch.as_tensor(rng.normal(size=(4, M, M))).to(torch.bfloat16)
+    lda, ldl = -(-N // 8) * 8, -(-M // 8) * 8
+    calls = []
+
+    class Lib:
+        def mgp_tril_fwd_split(self, *args):
+            calls.append(args)
+            return 0
+
+    real_empty, real_pad = torch.empty, torch.nn.functional.pad
+    made = []
+
+    def cpu_empty(*a, device=None, **kw):
+        made.append(real_empty(*a, **kw))
+        return made[-1]
+
+    card_pad = lambda t, *a, **kw: _OnTheCard(real_pad(t.t, *a, **kw))  # noqa: E731
+    before = tril_sq_fwd_split.launches
+    with mock.patch.object(_native, "library", Lib), \
+            mock.patch.object(_native, "stream_ptr", lambda device: 77), \
+            mock.patch.object(tril_kernel.torch, "empty", cpu_empty), \
+            mock.patch.object(tril_kernel.torch.nn.functional, "pad", card_pad):
+        B, extra = tril_sq_fwd_split(_OnTheCard(A2), _OnTheCard(L2))
+    assert B.shape == (2, N, M) and B.dtype == torch.float32
+    assert extra.shape == (2, N) and extra.dtype == torch.float32
+    (args,) = calls
+    part = made[1]
+    assert part.shape == (2, -(-M // 256), N)
+    assert args[2:5] == (B.data_ptr(), part.data_ptr(), extra.data_ptr())
+    assert args[5:] == (M, N, 2, lda, ldl, 77)
+    assert tril_sq_fwd_split.launches == before + 1
+    tril_sq_fwd_split.launches = before
+
+
+def test_tril_fwd_split_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        tril_sq_fwd_split(torch.zeros(4, 3, dtype=torch.bfloat16),
+                          torch.zeros(2, 4, 4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        tril_sq_fwd_split(torch.zeros(2, 4, 3, dtype=torch.bfloat16),
+                          torch.zeros(3, 4, 4, dtype=torch.bfloat16))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (chip_smoke.py runs it there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("M, N, Kc", [(200, 77, 3), (197, 333, 2),
+                                      (1024, 2048, 8)])
+def test_tril_fwd_split_kernel_extra_matches_plain(card, M, N, Kc):
+    """On the card: the split kernel's B and extra (the square sums from its
+    fp32 accumulators) within 1e-4 of the plain version's largest
+    magnitude, with NaN above L's diagonal."""
+    g = torch.Generator().manual_seed(M)
+    A = (torch.randn(M, N, generator=g) / M ** 0.5).to(card)
+    L = (torch.eye(M) + 0.05 * torch.randn(Kc, M, M, generator=g)).to(card)
+    L = L + torch.triu(torch.full_like(L, float("nan")), 1)
+    A2, L2 = _split_operands(A, L)
+    B, extra = tril_sq_fwd_split(A2, L2)
+    torch.cuda.synchronize()
+    want, want_extra = tril_sq_fwd_split_plain(A2, L2)
+    torch.testing.assert_close(extra, want_extra, rtol=1e-4,
+                               atol=1e-4 * float(want_extra.max()))
+    torch.testing.assert_close(B, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
