@@ -7,6 +7,7 @@ NVIDIA card.
     python3 chip_smoke.py          # from the root of a checkout; one card
     python3 chip_smoke.py --against DIR   # only the build and the A/B below
     python3 chip_smoke.py --cold-grads    # only the build and the study below
+    python3 chip_smoke.py --golden        # only the build and the golden runs
 
 With ``--against DIR`` (a checkout of another commit, e.g. the parent) it
 builds both, times the Cholesky, the tril forward and backward kernels (and
@@ -17,7 +18,11 @@ quadratic (#17), K(X, Z) and its pullback (#1) and the KL forward sums
 and prints no last line.  ``--cold-grads`` prints what the assignment
 leaves' tolerances at tau = 1e-2 and the split on both SMGP layers rest on
 (phase_cold_grads: seeds, split layers, kernel swaps, step times), checks
-nothing and prints no last line.
+nothing and prints no last line.  ``--golden`` trains the seven reference
+demo families at their full iteration counts (2000 / 4000 / 2000 / 2000 /
+2000 / 10000 / 2000) at seed 0 on the card and prints each family's row
+with both golden tiers' checks and its ELBO aggregate, in GOLDEN_r04.json's
+layout (phase_golden); it checks nothing and prints no last line.
 
 Phases, each printing its own lines:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
@@ -106,12 +111,24 @@ Phases, each printing its own lines:
      X) and its pullback, the Cholesky and its pullback (#2, #10/#11) and
      the KL (#12/#13) launched, raw q_sqrt above the diagonal bit-equal to
      its seeded garbage, ms per evaluation and scipy's host ms per
-     iteration, a profiler breakdown of one evaluation, peak memory; then
-     predict_y on 8192 points and predict_f(full_cov=True) on 2048 with #3
-     and #5 launched;
+     iteration, a profiler breakdown of one evaluation (K(X, X)'s forward in
+     it), peak memory; then predict_y on 8192 points and
+     predict_f(full_cov=True) on 2048 with #3 and #5 launched;
  18. the VGP at N=512 on the card against the f64 CPU path (the f32 CPU
      path beside): the ELBO, every raw leaf's gradient, predict_f,
-     predict_y and predict_log_density.
+     predict_y and predict_log_density;
+ 19. the demo layer at the reference demos' own configurations (M=25,
+     batch 500, S=25, K=2-4, D=1-2, f32): each of the nine CLIs of
+     modulatedgps_tpu_torch/demos through its main(argv) for 50 iterations
+     with --predict-samples 10, its ELBOs finite and every kernel it should
+     launch launched (DEMO_KERNELS; the 1-D and 2-D figures written where
+     matplotlib is installed); the flagship demo_multimodal_1d for its 2000
+     iterations held to the golden robustness tier (purity >= 0.45, max
+     branch RMSE <= 0.2, the smoothed ELBO within that tier's tolerance of
+     -0.1), the figure tier printed beside it; the flagship's model's step
+     regime: ms an Adam step, kernel ms a step and the busy share from
+     kernel-level events, launches a step by family, a served predict_y of
+     500 points, and the fit's seconds; the phase's wall time.
 The line before the last is a JSON object with every kernel's launches
 (on the path that runs it: the train step, sampling for #5, path A for #4,
 the served batches for #17, phase 5's SVGP regression for the one-pass
@@ -132,6 +149,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -1186,23 +1204,25 @@ def bwd_check(name, label, M, N, K, got, want):
     return err
 
 
+def inv_residual(L, Inv):
+    """max_j |Inv_j L_jj - I| over the diagonal blocks, L padded with the
+    identity as the kernel pads a ragged tail."""
+    nblk, B, _ = Inv.shape
+    M = L.shape[0]
+    Lp = torch.eye(nblk * B, dtype=L.dtype, device=L.device)
+    Lp[:M, :M] = L
+    blocks = torch.stack([Lp[j * B:(j + 1) * B, j * B:(j + 1) * B]
+                          for j in range(nblk)])
+    return float((Inv @ blocks - torch.eye(B, dtype=L.dtype, device=L.device))
+                 .abs().max())
+
+
 def chol_quad_rows(rand, dev="cuda"):
     """Phase 2's rows for the blocked Cholesky (#15/#16) and the fused q_sqrt
     quadratic (#17)."""
     from modulatedgps_tpu_torch.ops import chol_kernel, quad_kernel, trsm_kernel
     dev = torch.device(dev)
     rows = {}
-
-    def inv_residual(L, Inv):
-        """max_j |Inv_j L_jj - I| over the diagonal blocks, L padded with
-        the identity as the kernel pads a ragged tail."""
-        nblk, B, _ = Inv.shape
-        M = L.shape[0]
-        Lp = torch.eye(nblk * B, device=dev)
-        Lp[:M, :M] = L
-        blocks = torch.stack([Lp[j * B:(j + 1) * B, j * B:(j + 1) * B]
-                              for j in range(nblk)])
-        return float((Inv @ blocks - torch.eye(B, device=dev)).abs().max())
 
     # --- cholesky_factor: distances as max|X - Y| / max|L64| over the
     # matrix ("whole") and as max_ij |X - Y|_ij / max_i |L64_ij| (each
@@ -1760,58 +1780,42 @@ FAMILIES = (("kl_fwd", "KL forward (#12)"), ("kl_bwd_kernel", "KL backward (#13)
             ("triu_tril", "tril / triu masks"), ("reduce", "reductions"))
 
 
-def profile_kernels(fn, what, families=FAMILIES, top=12):
-    """torch.profiler over one call of fn: logs the device ms and launches
-    by op family and the largest kernels, from kernel-level events only
-    (an autograd Function's range would count its kernels twice); returns
-    (the events grouped by input shape, [(self device ms, calls, kernel
-    name)]).  A few stand-in kernels run first, in the schedule's warm-up,
-    whose events are dropped: a profile that starts recording at its
-    region's first kernel has lost the first few (a step's K(X, Z)
-    forwards and a Cholesky).  fn itself runs once, so a profiled train
-    step advances the model by one step, as it did before."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    events = {}
-
-    def keep(p):
-        events["all"] = p.key_averages()
-        events["by_shape"] = p.key_averages(group_by_input_shape=True)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True, on_trace_ready=keep,
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        stand_in = torch.zeros(1024, device="cuda")
-        for _ in range(8):
-            stand_in.add_(1.0)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
-                   for ev in events["all"]
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.self_device_time_total > 0
-                   and not ev.key.startswith("ProfilerStep")), reverse=True)
-    total = sum(r[0] for r in rows)
-    by_family: dict[str, list] = {}
+def by_family(rows, families=FAMILIES):
+    """{family: [device ms, launches]} of profile rows."""
+    out: dict[str, list] = {}
     for ms, count, key in rows:
         fam = next((f for sub, f in families if sub in key),
                    "elementwise and other")
-        acc = by_family.setdefault(fam, [0.0, 0])
+        acc = out.setdefault(fam, [0.0, 0])
         acc[0] += ms
         acc[1] += count
+    return out
+
+
+def profile_kernels(fn, what, families=FAMILIES, top=12):
+    """torch.profiler over one call of fn through
+    utils.profiling.kernel_times: logs the device ms and launches by op
+    family and the largest kernels, from kernel-level events only (an
+    autograd Function's range would count its kernels twice); returns (the
+    events grouped by input shape, [(self device ms, calls, kernel name)]).
+    Stand-in kernels open the schedule's warm-up and the recorded step and
+    fn starts 50 ms after them: a profile loses the launches of its first
+    milliseconds now and then (a step's K(X, Z) forwards and Cholesky, one
+    VGP evaluation's K(X, X); --profile-misses measures it).  fn itself
+    runs once, so a profiled train step advances the model by
+    one step, as it did before."""
+    from modulatedgps_tpu_torch.utils.profiling import kernel_times
+    rows, by_shape = kernel_times(fn)
+    total = sum(r[0] for r in rows)
     log(f"profiled {what}: {total:.3f} ms of kernel time; by family (ms, "
         f"share, launches):")
-    for fam, (ms, count) in sorted(by_family.items(),
+    for fam, (ms, count) in sorted(by_family(rows, families).items(),
                                    key=lambda kv: -kv[1][0]):
         log(f"  {ms:9.3f} {ms / total:6.1%} {count:6d}  {fam}")
     log("largest kernels (self device ms, calls, name):")
     for ms, count, key in rows[:top]:
         log(f"  {ms:9.3f} {count:5d}  {key[:100]}")
-    return events["by_shape"], rows
+    return by_shape, rows
 
 
 def profile_step(step, model, gen, X, Y, top=12, families=FAMILIES):
@@ -3110,6 +3114,9 @@ def phase_vgp(pt, dev="cuda", N=VGP_N, maxiter=VGP_MAXITER, n_pred=BATCH,
         solver = [key for _, _, key in rows if "potrf" in key or "getrf" in key]
         check(not solver, f"no cuSOLVER factorization in the evaluation "
               f"({[k[:60] for k in solver[:3]]})")
+        kxx = sum(n for _, n, key in rows if "kxz_kernel<" in key)
+        check(kxx > 0, f"the evaluation's profile holds K(X, X)'s forward, "
+              f"its first kernel ({kxx} kxz_kernel launches)")
 
     pt.reset_launch_counts()
     Xp = torch.as_tensor(rng.uniform(-5, 5, size=(n_pred, VGP_D)),
@@ -3655,6 +3662,715 @@ def against_kxz_kl(importlib, dev, g, turns):
               f"{float((got - want).abs().max()):.3e})")
 
 
+# Phase 19 (a) also holds every kernel wrapper the demos launched against
+# its plain version at the demos' own shapes and on their own data: the
+# first call at each (wrapper, argument shapes and options) the nine CLIs
+# make is copied on the card as it happens (ops reached through the
+# package's modules, utils.profiling.intercepting) and replayed after the
+# runs, the kernel beside its plain version, at phase 2's tolerance for
+# that kernel.  Those replays are not the runs' launches: the counts are
+# read before them.
+def _copy(x, memo):
+    """x with every tensor copied (one copy for a tensor passed twice)."""
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = x.detach().clone()
+        return memo[id(x)]
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copy(v, memo) for v in x)
+    return x
+
+
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return x if isinstance(x, (bool, int, str, type(None))) else type(x).__name__
+
+
+@contextlib.contextmanager
+def recording_wrapper_calls():
+    """Inside, the first call of each kernel wrapper at each signature is
+    copied (before it runs: adam_tril_ writes its operands) into the dict
+    this yields, {(name, signature): (args, kwargs)}."""
+    from modulatedgps_tpu_torch.utils.profiling import intercepting
+    calls = {}
+
+    def record(fn, *args, **kwargs):
+        key = (fn.__name__, _signature(args),
+               _signature(tuple(sorted(kwargs.items()))))
+        if key not in calls:
+            memo = {}
+            calls[key] = (_copy(args, memo), _copy(kwargs, memo))
+        return fn(*args, **kwargs)
+
+    with intercepting(record):
+        yield calls
+
+
+def _close(got, want, rel):
+    """(ok, max |got - want|) with rtol and atol ``rel`` of max |want|."""
+    err, bad = allclose_report(got, want, rel, rel * float(want.abs().max()))
+    return bad == 0, err
+
+
+def _replay_kxz(a, kw):
+    from modulatedgps_tpu_torch.ops import kxz_kernel
+    got = kxz_kernel.kxz(*a, **kw)
+    err, bad = allclose_report(got, kxz_kernel.kxz_plain(*a, **kw), 1e-5,
+                               1e-6 * float(a[3]))
+    return bad == 0, err
+
+
+def _replay_kxz_vjp(a, kw):
+    from modulatedgps_tpu_torch.ops import kxz_kernel
+    kind, needs = kw.get("kind", "rbf"), kw.get("needs", (True,) * 4)
+    got = kxz_kernel.kxz_vjp(*a, **kw)
+    plain = kxz_kernel.kxz_vjp_plain(*a, kind, needs)
+    exact = kxz_eager_pullback(*(t.double() for t in a[:4]), a[4].double(),
+                               kind, needs)
+    ok, worst = True, 0.0
+    for leaf, g, p, e in zip(KXZ_LEAVES, got, plain, exact):
+        if e is None:
+            ok = ok and g is None
+            continue
+        tol = KXZ_VJP_TOL * float(e.abs().max())
+        err = float((g.double() - e).abs().max())
+        err_p = float((g - p).abs().max())
+        err_32 = float((p.double() - e).abs().max())
+        worst = max(worst, err)
+        # Where the gradient cancels far below its terms (the lengthscale's
+        # over [25, 1] x [300, 1], K(Z, Z)'s Z-bar near 0), the f32 closed
+        # form itself lies further than tol from f64: the kernel is then
+        # held within 2x the closed form's distance, as the Cholesky rows
+        # hold it to the plain version's.
+        good = finite(g) and ((err <= tol and err_p <= tol)
+                              or (err_32 > tol and err <= 2 * err_32))
+        if not good or err > tol:
+            log(f"    kxz_vjp {tuple(a[0].shape)}x{tuple(a[1].shape)} "
+                f"{kind} needs {needs} {leaf}: vs f64 {err:.3e}, vs plain "
+                f"f32 {err_p:.3e}, plain f32 vs f64 {err_32:.3e}, tol "
+                f"{tol:.3e}: {'ok' if good else 'FAIL'}")
+        ok = ok and good
+    return ok, worst
+
+
+def _replay_cholesky(a, kw):
+    from modulatedgps_tpu_torch.ops import chol_kernel
+    (K,) = a
+    L, Inv = chol_kernel.cholesky_factor(K)
+    Lp, Invp = chol_kernel.cholesky_factor_plain(K)
+    L64 = torch.linalg.cholesky(K.double())
+    scale, col_scale = float(L64.abs().max()), L64.abs().amax(0)
+
+    def dist(X, Y=L64):
+        d = (X.double() - Y.double()).abs()
+        return float(d.max()) / scale, float((d / col_scale).max())
+
+    (e_k, _), (e_p, c_p) = dist(L), dist(Lp)
+    e_lib, _ = dist(torch.linalg.cholesky(K))
+    e_kp, c_kp = dist(L, Lp)
+    ok = (finite(L) and finite(Inv) and upper_nonzero(L) == 0
+          and e_k <= 2 * e_lib + 2.4e-7 and e_kp <= 2 * e_p + 2.4e-7
+          and c_kp <= 2 * c_p + 2.4e-7
+          and inv_residual(L, Inv) <= 3 * inv_residual(Lp, Invp) + 1e-6)
+    return ok, e_kp * scale
+
+
+def _replay_trsm(transpose):
+    def replay(a, kw):
+        from modulatedgps_tpu_torch.ops import trsm_kernel
+        L, B = a[0], (a[1] if len(a) > 1 else kw.get("B"))
+        fn, plain = ((trsm_kernel.trsm_lower_t, trsm_kernel.trsm_lower_t_plain)
+                     if transpose else
+                     (trsm_kernel.trsm_lower, trsm_kernel.trsm_lower_plain))
+        got, want = fn(*a, **kw), plain(L, B)
+        op = torch.tril(L).T if transpose else torch.tril(L)
+        rhs = torch.eye(L.shape[0], device=L.device) if B is None else B
+        res_k = float((op @ got - rhs).abs().max())
+        res_p = float((op @ want - rhs).abs().max())
+        return (finite(got) and res_k <= 3 * res_p,
+                float((got - want).abs().max()))
+    return replay
+
+
+def _replay_tril(name, rel, lower_zero=False):
+    def replay(a, kw):
+        from modulatedgps_tpu_torch.ops import tril_kernel
+        got = getattr(tril_kernel, name)(*a, **kw)
+        want = getattr(tril_kernel, name + "_plain")(*a, **kw)
+        ok, err = _close(got.float(), want.float(), rel)
+        if name == "tril_sq_fwd":     # and its row square sums, as phase 2
+            ok = ok and _close(got.float().square().sum(-1),
+                               want.float().square().sum(-1), rel)[0]
+        if lower_zero:
+            ok = ok and upper_nonzero(got) == 0
+        return ok, err
+    return replay
+
+
+def _replay_split(a, kw):
+    from modulatedgps_tpu_torch.ops import tril_kernel
+    A2, L2 = a
+    B, extra = tril_kernel.tril_sq_fwd_split(A2, L2)
+    want, want_extra = tril_kernel.tril_sq_fwd_split_plain(A2, L2)
+    ok, err = _close(B, want, 1e-4)
+    ok = ok and _close(extra, want_extra, 1e-4)[0]
+    # Against the f64 product of the f32 operands (hi + lo): under 1/20 of
+    # one bf16 pass's error.
+    K = L2.shape[0] // 2
+    A = A2[0].double() + A2[1].double()
+    L = L2[:K].double() + L2[K:].double()
+    exact = A.T @ torch.tril(L)
+    split64 = float((B.double() - exact).abs().max())
+    one64 = float((tril_kernel.tril_fwd_f32_plain(
+        A.float().bfloat16(), L.float().bfloat16()).double()
+        - exact).abs().max())
+    return ok and split64 < one64 / 20, err
+
+
+def _replay_trimm(name):
+    def replay(a, kw):
+        from modulatedgps_tpu_torch.ops import trimm_kernel
+        got = getattr(trimm_kernel, name)(*a, **kw)
+        ok, err = _close(got, getattr(trimm_kernel, name + "_plain")(*a, **kw),
+                         2e-3)
+        if kw.get("tril_out"):
+            ok = ok and upper_nonzero(got) == 0
+        return ok, err
+    return replay
+
+
+def _replay_kl_fwd(a, kw):
+    from modulatedgps_tpu_torch.ops import kl_kernel
+    (Lq,) = a
+    sq, ld = kl_kernel.kl_sq_logdiag(Lq)
+    low = torch.tril(Lq).double()
+    logd = torch.log(torch.diagonal(low, dim1=-2, dim2=-1).abs())
+    sq64, ld64 = float(low.square().sum()), float(logd.sum())
+    e_sq = abs(float(sq) - sq64) / sq64
+    e_ld = abs(float(ld) - ld64) / max(float(logd.abs().sum()), 1e-30)
+    return e_sq <= 1e-5 and e_ld <= 1e-5, abs(float(sq) - sq64)
+
+
+def _replay_kl_bwd(a, kw):
+    from modulatedgps_tpu_torch.ops import kl_kernel
+    dL = kl_kernel.kl_bwd_scale(*a)
+    ok, err = _close(torch.tril(dL), kl_kernel.kl_bwd_scale_plain(*a), 1e-6)
+    return ok and upper_nonzero(dL) == 0, err
+
+
+def _replay_adam(a, kw):
+    from modulatedgps_tpu_torch.training import fused_adam
+    p, g, m, v = a[:4]
+    got, want = [t.clone() for t in (p, m, v)], [t.clone() for t in (p, m, v)]
+    fused_adam.adam_tril_(got[0], g, got[1], got[2], *a[4:], **kw)
+    fused_adam.adam_tril_plain_(want[0], g, want[1], want[2], *a[4:], **kw)
+    ok, worst = True, 0.0
+    for x, y, old in zip(got, want, (p, m, v)):
+        good, err = _close(torch.tril(x), torch.tril(y), 1e-6)
+        bits = torch.int32 if x.element_size() == 4 else torch.int64
+        kept = same_bits(torch.triu(x.view(bits), 1),
+                         torch.triu(old.view(bits), 1))
+        ok, worst = ok and good and kept, max(worst, err)
+    return ok, worst
+
+
+def _replay_quad(a, kw):
+    from modulatedgps_tpu_torch.ops import quad_kernel
+    S, A = a
+    got = quad_kernel.qsqrt_sq_colsum(S, A)
+    want = quad_kernel.qsqrt_sq_colsum_plain(S.to(torch.bfloat16), A)
+    return _close(got, want.to(got.dtype), 1e-4)
+
+
+# Each wrapper's replay: (ok, max |kernel - plain|) on the recorded inputs,
+# at phase 2's tolerance for that kernel.
+REPLAYS = {
+    "kxz": _replay_kxz, "kxz_vjp": _replay_kxz_vjp,
+    "cholesky_factor": _replay_cholesky,
+    "trsm_lower": _replay_trsm(False), "trsm_lower_t": _replay_trsm(True),
+    "tril_sq_fwd": _replay_tril("tril_sq_fwd", 2e-2),
+    "tril_fwd_f32": _replay_tril("tril_fwd_f32", 1e-4),
+    "tril_sq_fwd_split": _replay_split,
+    "tril_dl": _replay_tril("tril_dl", 1e-3, lower_zero=True),
+    "tril_da": _replay_tril("tril_da", 1e-3),
+    "tril_sq_dl": _replay_tril("tril_sq_dl", 1e-3, lower_zero=True),
+    "tril_sq_da": _replay_tril("tril_sq_da", 1e-3),
+    "tri_tt_matmul": _replay_trimm("tri_tt_matmul"),
+    "tri_nt_matmul": _replay_trimm("tri_nt_matmul"),
+    "kl_sq_logdiag": _replay_kl_fwd, "kl_bwd_scale": _replay_kl_bwd,
+    "adam_tril_": _replay_adam, "qsqrt_sq_colsum": _replay_quad,
+}
+
+
+def replay_demo_calls(calls, expected):
+    """Every recorded call replayed, kernel against plain; one check a
+    wrapper over all its shapes, and one that every wrapper in
+    ``expected`` was recorded."""
+    by_name = {}
+    for (name, sig, _), (args, kwargs) in calls.items():
+        by_name.setdefault(name, []).append((sig, args, kwargs))
+    for name in sorted(by_name):
+        bad, worst = [], 0.0
+        for sig, args, kwargs in by_name[name]:
+            try:
+                ok, err = REPLAYS[name](args, kwargs)
+            except Exception as exc:   # recorded as a failure
+                ok, err = False, float("nan")
+                log(f"    {name} {sig} raised {exc!r}")
+            worst = max(worst, err) if math.isfinite(err) else worst
+            if not ok:
+                bad.append(sig)
+        shapes = sorted({tuple(s[0] for s in sig
+                               if isinstance(s, tuple) and s
+                               and isinstance(s[0], tuple))
+                         for sig, _, _ in by_name[name]})
+        check(not bad, f"{name} at the demos' shapes: {len(by_name[name])} "
+              f"recorded calls against the plain version, largest "
+              f"max_abs_err {worst:.3e}; shapes {shapes[:6]}"
+              + (" ..." if len(shapes) > 6 else "")
+              + (f"; failed at {bad}" if bad else ""))
+    missing = sorted(set(expected) - set(by_name))
+    check(not missing, f"every wrapper the demos should launch was recorded "
+          f"and replayed at their shapes (none of {missing})")
+
+
+# Phase 19: the demo CLIs at the reference demos' own configurations (M=25,
+# N=100-1500, batch 500, K=2-4, D=1-2).  The kernels each must launch:
+# every SMGP / SMGPModified demo trains (Adam) and serves through
+# precompute_smgp (the fused q_sqrt quadratic #17), except the flagship,
+# which predicts from the trained model (the 3-pass split, as the reference
+# flagship predicts from its model); an SMGP takes the split on both
+# layers, an SMGPModified on its assignment layer and the one pass (#3,
+# #8/#9) on its prediction layer.
+DEMO_COMMON = ("kxz", "kxz_vjp", "cholesky_factor", "trsm_lower",
+               "tri_tt_matmul", "tri_nt_matmul")
+DEMO_TRIL = ("kl_sq_logdiag", "kl_bwd_scale", "adam_tril_")
+DEMO_SPLIT = ("tril_sq_fwd_split", "tril_dl", "tril_da")
+DEMO_ONE_PASS = ("tril_sq_fwd", "tril_sq_dl", "tril_sq_da")
+SMGP_DEMO = DEMO_COMMON + DEMO_TRIL + DEMO_SPLIT + ("qsqrt_sq_colsum",)
+MODIFIED_DEMO = SMGP_DEMO + DEMO_ONE_PASS
+DEMO_KERNELS = {
+    "demo_multimodal_1d": DEMO_COMMON + DEMO_TRIL + DEMO_SPLIT,
+    "demo_multimodal_1d_modified": MODIFIED_DEMO,
+    "demo_multiclass_1d": MODIFIED_DEMO,
+    "demo_2d": SMGP_DEMO,
+    "demo_multiclass_2d": MODIFIED_DEMO,
+    "demo_john_doe": SMGP_DEMO,
+    "demo_john_doe_multiclass": MODIFIED_DEMO,
+    "demo_svgp": DEMO_COMMON + DEMO_TRIL + DEMO_ONE_PASS,
+    "demo_multiclass_svgp": DEMO_COMMON,      # q_diag: no tril leaf; L-BFGS
+}
+DEMO_ITERS, DEMO_PREDICT_SAMPLES = 50, 10
+FLAGSHIP = "demo_multimodal_1d"
+# The figure builders each demo writes with --out.
+DEMO_FIGURES = {"demo_multimodal_1d": ("demo_multimodal_1d.png",),
+                "demo_2d": ("demo_2d_1.png", "demo_2d_2.png")}
+STEP_REGIME_STEPS, STEP_REGIME_PROFILED = 20, 5
+
+
+def quietly(fn, *args, **kwargs):
+    """(fn's result, the last line fn printed): a demo's summaries and ELBO
+    table stay off this script's output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kwargs)
+    lines = buf.getvalue().strip().splitlines()
+    return result, lines[-1] if lines else ""
+
+
+def demo_elbos(out):
+    """The ELBOs a demo's main returns: the history, or the final one."""
+    if isinstance(out, tuple):
+        return out[2]
+    return out["elbos"] if "elbos" in out else [out["elbo"]]
+
+
+def phase_demos(pt, dev="cuda", iters=DEMO_ITERS, flagship_iters=None):
+    """Phase 19: (a) every demo CLI through its main(argv) for ``iters``
+    steps, (b) the flagship at full length held to the golden robustness
+    tier, (c) the flagship model's step regime at M=25."""
+    import importlib
+    import importlib.util
+
+    from modulatedgps_tpu_torch.demos import golden
+    on_card = torch.device(dev).type == "cuda"
+    platform = "gpu" if on_card else "cpu"
+    t_phase = time.perf_counter()
+    log(f"== phase 19: the demo CLIs on {dev} ({iters} iterations, "
+        f"--predict-samples {DEMO_PREDICT_SAMPLES}), the flagship's golden "
+        f"run and its step regime")
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        log("  matplotlib is not installed here: the figure branches run "
+            "with --no-plot (tests/test_torch_demos.py writes their PNGs)")
+    with (tempfile.TemporaryDirectory() as out,
+          recording_wrapper_calls() as calls):
+        for name, kernels in DEMO_KERNELS.items():
+            demo = importlib.import_module(f"modulatedgps_tpu_torch.demos.{name}")
+            argv = ["--platform", platform, "--iters", str(iters),
+                    "--predict-samples", str(DEMO_PREDICT_SAMPLES)]
+            plot = figures and name in DEMO_FIGURES
+            argv += ["--out", out] if plot else ["--no-plot"]
+            pt.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                out_, last = quietly(demo.main, argv)
+            except Exception as exc:   # recorded as a failure; next demo
+                traceback.print_exc()
+                check(False, f"{name} raised {exc!r}")
+                continue
+            elbos = demo_elbos(out_)
+            seconds = time.perf_counter() - t0
+            counts = {k: n for k, n in pt.launch_counts().items() if n}
+            log(f"{name}: {seconds:.2f} s ({last!r}), launches {counts}")
+            check(len(elbos) > 0 and all(math.isfinite(e) for e in elbos),
+                  f"{name}: {len(elbos)} ELBOs, all finite (last "
+                  f"{elbos[-1] if elbos else None})")
+            if on_card:
+                missing = [k for k in kernels if not counts.get(k)]
+                check(not missing, f"{name}: every kernel it should launch "
+                      f"was launched (none of {missing})")
+            for fig in DEMO_FIGURES.get(name, ()) if plot else ():
+                check(os.path.exists(os.path.join(out, fig)),
+                      f"{name}: figure {fig} written")
+    if on_card:
+        replay_demo_calls(calls, set().union(*DEMO_KERNELS.values()))
+    flagship_step_reference(pt, dev)
+
+    # (b) the flagship at its reference length, S=25, batch 500, lr 5e-3,
+    # seed 0, held to the robustness tier (its noise is Philox in float32,
+    # not the draw the reference figure pins); the figure tier beside it.
+    target = golden.FAMILIES[FLAGSHIP]
+    frac = 1.0 if flagship_iters is None else flagship_iters / 2000
+    with tempfile.TemporaryDirectory() as out:
+        metrics = os.path.join(out, "metrics.jsonl")
+        pt.reset_launch_counts()
+        t0 = time.perf_counter()
+        row, _ = quietly(golden.run_family, FLAGSHIP, seed=0,
+                         iters_frac=frac, platform=platform,
+                         argv=["--metrics", metrics])
+        seconds = time.perf_counter() - t0
+        with open(metrics) as f:
+            fit_s = [json.loads(line) for line in f][-1]["t"]
+    fam = golden.aggregate([row], target)
+    robust_ok = row["elbo"] >= target - fam["elbo_tol_robust"]
+    figure_checks = golden.evaluate_checks(FLAGSHIP, row, "figure")
+    figure_elbo = row["elbo"] >= target - fam["elbo_tol_figure"]
+    log(f"{FLAGSHIP} {row['iters']} iterations on {dev}: fit {fit_s:.2f} s "
+        f"(MetricsLogger clock), {seconds:.2f} s with data, k-means and "
+        f"predictions; row {json.dumps(row)}")
+    log(f"  figure tier (printed, not checked): {figure_checks}, ELBO "
+        f"{row['elbo']} >= {target} - {fam['elbo_tol_figure']}: {figure_elbo}")
+    check(row["pass"] and robust_ok,
+          f"{FLAGSHIP}: the robustness tier: {row['checks']} (purity >= "
+          f"0.45, max branch RMSE <= 0.2), smoothed final ELBO "
+          f"{row['elbo']} >= {target} - {fam['elbo_tol_robust']}")
+    regime = step_regime(pt, dev)
+    regime["fit_s"] = fit_s
+    log(f"phase 19 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return regime
+
+
+FLAGSHIP_REF_STEPS, FLAGSHIP_GRAD_FACTOR = 100, 4
+
+
+def flagship_step_reference(pt, dev, steps=FLAGSHIP_REF_STEPS):
+    """(a) ends with one evaluation of the flagship's model (M=25, K=3,
+    S=25, batch 500, tau 1e-2) on ``dev`` in f32 against the CPU in f64,
+    the f32 CPU path beside: the state after ``steps`` of the flagship's
+    own f64 Adam run on the CPU, one batch and one noise draw, both layers
+    at the f32 jitter.  The loss (the negative ELBO) and every raw leaf's
+    gradient within FLAGSHIP_GRAD_FACTOR x the f32 CPU path's max|err| /
+    max|f64| (+ 1e-6): at this size and temperature the f32 path's own
+    distance runs from 1e-4 (the likelihood) to 3e-2 (the assignment
+    lengthscale), so a fixed bound would say nothing of the card."""
+    from modulatedgps_tpu_torch.config import default_jitter
+    from modulatedgps_tpu_torch.data import minibatch_iterator
+    from modulatedgps_tpu_torch.demos import demo_multimodal_1d as flagship
+    from modulatedgps_tpu_torch.demos._common import demo_argparser
+    from modulatedgps_tpu_torch.demos._runner import build, train
+    args = demo_argparser(dict(iters=steps, K=3)).parse_args([])
+    ref, (_, Xtr, Ytr, _) = build(flagship.CONFIG, args, "cpu", torch.float64)
+    quietly(train, ref, args, Xtr, Ytr, "cpu", torch.float64)
+    state = ref.state_dict()
+    X, Y = next(iter(minibatch_iterator(Xtr, Ytr, args.batch, seed=1)))
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(args.num_samples, args.batch, args.K))
+    g = rng.gumbel(size=(args.num_samples, args.batch, args.K))
+    runs = {}
+    for key, (d, t) in {dev: (dev, torch.float32),
+                        "cpu f32": ("cpu", torch.float32),
+                        "f64": ("cpu", torch.float64)}.items():
+        model, _ = build(flagship.CONFIG, args, d, t)
+        model.load_state_dict(state)
+        for layer in (model.pred_layer, model.assign_layer):
+            layer.jitter = default_jitter(torch.float32)
+        to = lambda a: torch.as_tensor(a, dtype=t, device=d)
+        runs[key] = path_c_grads(pt, model, to(X), to(Y), to(z), to(g))
+    log(f"  {FLAGSHIP}'s model after {steps} f64 Adam steps: one "
+        f"evaluation, {dev} f32 vs CPU f64 (f32 CPU beside)")
+    want = runs["f64"]
+    for name in want:
+        rel, cpu_rel = (float((runs[k][name] - want[name]).abs().max()
+                              / want[name].abs().max()) for k in (dev, "cpu f32"))
+        tol = FLAGSHIP_GRAD_FACTOR * cpu_rel + 1e-6
+        check(rel <= tol and finite(runs[dev][name]),
+              f"{FLAGSHIP} {name}: max|err| / max|f64| {rel:.3e} (f32 CPU "
+              f"{cpu_rel:.3e}; <= {FLAGSHIP_GRAD_FACTOR}x + 1e-6)")
+
+
+def step_regime(pt, dev, steps=STEP_REGIME_STEPS,
+                profiled=STEP_REGIME_PROFILED):
+    """(c) The flagship's model (M=25, K=3, S=25, batch 500): ms an Adam
+    step (median of ``steps`` after warm-up), kernel ms a step (kernel-level
+    events of ``profiled`` steps), the busy share, launches a step by
+    family and by wrapper, and one served predict_y batch of 500 points."""
+    on_card = torch.device(dev).type == "cuda"
+    dtype = torch.float32 if on_card else torch.float64
+    model, args, run, Xtr = flagship_trainer(pt, dev)
+    run(5)
+    sync(dev)
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        run()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    pt.reset_launch_counts()
+    run(profiled)
+    sync(dev)
+    per_step = {k: n / profiled for k, n in pt.launch_counts().items() if n}
+    out = {"step_ms": step_ms, "step_ms_range": [min(times), max(times)],
+           "wrapper_launches_per_step": per_step}
+    Xq = torch.tensor(Xtr[:500], dtype=dtype, device=dev)
+    with torch.no_grad():
+        serving = pt.precompute_smgp(model)
+        for _ in range(3):
+            serving.predict_y(Xq)
+        sync(dev)
+        served = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            serving.predict_y(Xq)
+            sync(dev)
+            served.append((time.perf_counter() - t0) * 1e3)
+    out["predict_y_ms"] = statistics.median(served)
+    log(f"step regime M={model.pred_layer.num_inducing} K=3 S="
+        f"{args.num_samples} batch {args.batch}: {step_ms:.3f} ms an Adam "
+        f"step (median of {steps}; {min(times):.3f}-{max(times):.3f}, host "
+        f"clock to synchronize); served predict_y on 500 points "
+        f"{out['predict_y_ms']:.3f} ms (median of {steps}); wrapper launches "
+        f"a step {per_step}")
+    if on_card:
+        _, rows = profile_kernels(lambda: run(profiled),
+                                  f"{profiled} Adam steps at M=25")
+        kernel_ms = sum(r[0] for r in rows) / profiled
+        launches = sum(r[1] for r in rows) / profiled
+        fams = {f: [round(ms / profiled, 4), c / profiled]
+                for f, (ms, c) in by_family(rows).items()}
+        out.update(kernel_ms=kernel_ms, busy_share=kernel_ms / step_ms,
+                   launches_per_step=launches, families_per_step=fams)
+        log(f"  kernel time {kernel_ms:.3f} ms a step (kernel-level events "
+            f"of {profiled} steps), busy share {kernel_ms / step_ms:.1%} of "
+            f"the {step_ms:.3f} ms step; {launches:.1f} kernel launches a "
+            f"step; by family (ms, launches a step): {fams}")
+        check(kernel_ms > 0 and 0 < kernel_ms / step_ms <= 1.0,
+              f"the step regime's busy share is a share "
+              f"({kernel_ms / step_ms:.3f})")
+    return out
+
+
+PROFILE_TRIALS = 40
+
+
+def flagship_trainer(pt, dev):
+    """(model, args, run, Xtrain): the flagship's model (M=25, K=3, S=25,
+    batch 500), ``run(n)``, n Adam steps over three of its batches in turn,
+    and its training inputs."""
+    import itertools
+
+    from modulatedgps_tpu_torch.data import minibatch_iterator
+    from modulatedgps_tpu_torch.demos import demo_multimodal_1d as flagship
+    from modulatedgps_tpu_torch.demos._common import demo_argparser
+    from modulatedgps_tpu_torch.demos._runner import build
+    dtype = torch.float32 if torch.device(dev).type == "cuda" else torch.float64
+    args = demo_argparser(dict(iters=2000, K=3)).parse_args([])
+    model, (_, Xtr, Ytr, _) = build(flagship.CONFIG, args, dev, dtype)
+    step = pt.make_train_step(pt.Adam(model, args.lr))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [(torch.tensor(x, dtype=dtype, device=dev),
+                torch.tensor(y, dtype=dtype, device=dev))
+               for x, y in itertools.islice(
+                   minibatch_iterator(Xtr, Ytr, args.batch), 3)]
+    turn = itertools.count()
+
+    def run(n=1):
+        for _ in range(n):
+            step(model, gen, *batches[next(turn) % 3])
+    return model, args, run, Xtr
+
+
+def phase_profile_misses(pt, trials=PROFILE_TRIALS):
+    """--profile-misses: how often torch.profiler loses kernels of two
+    regions, a flagship Adam step (M=25, about 500 launches) and one VGP
+    evaluation's loss and gradient (N=4096, phase 17's), under five
+    set-ups, ``trials`` profiles each in turns: a bare profile() around the
+    region; a schedule with an empty warm-up step; the bare profile with
+    the region 50 ms after it starts; a bare profile right after another
+    profiler session has run and the card has synchronized; and
+    utils.profiling.kernel_times (stand-ins, then 50 ms; its recorded
+    stand-ins are counted too).  A trial's kernels are counted by name
+    (kernel-level events only); the reference is the most of each name any
+    trial of the region saw.  Prints each set-up's lost trials and the
+    kernels lost; checks nothing into the exit code."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, schedule
+
+    from modulatedgps_tpu_torch.utils.profiling import (STAND_IN_KERNEL,
+                                                        kernel_times)
+    _, _, step, _ = flagship_trainer(pt, "cuda")
+    X, Y, _ = vgp_data(VGP_N)
+    vgp = build_vgp(pt, X, Y, "cuda", torch.float32)
+    params = [p for p in vgp.parameters() if p.requires_grad]
+    regions = {"flagship step": step,
+               "VGP evaluation": lambda: torch.autograd.grad(
+                   vgp.training_loss(), params)}
+    for region in regions.values():
+        for _ in range(3):
+            region()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def counted(events, key=None):
+        return collections.Counter({
+            ev.key: ev.count for ev in events
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0
+            and (STAND_IN_KERNEL in ev.key if key else
+                 STAND_IN_KERNEL not in ev.key)
+            and not ev.key.startswith("ProfilerStep")})
+
+    def bare(run, pause=0.0, after_session=False):
+        if after_session:
+            with profile(activities=acts):
+                torch.ones(8, device="cuda").sum()
+                torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        with profile(activities=acts) as p:
+            if pause:
+                time.sleep(pause)
+            run()
+            torch.cuda.synchronize()
+        return counted(p.key_averages()), None
+
+    def warmed(run):
+        kept = {}
+        with profile(activities=acts, schedule=schedule(wait=0, warmup=1,
+                                                        active=1),
+                     on_trace_ready=lambda p: kept.update(
+                         ev=p.key_averages())) as p:
+            p.step()
+            run()
+            torch.cuda.synchronize()
+            p.step()
+        return counted(kept["ev"]), None
+
+    def helper(run):
+        rows, by_shape = kernel_times(run)
+        stand_ins = sum(counted(by_shape, STAND_IN_KERNEL).values())
+        return collections.Counter({k: c for _, c, k in rows}), stand_ins
+
+    setups = {"bare": bare,
+              "schedule warm-up": warmed,
+              "bare, 50 ms in": lambda run: bare(run, pause=0.05),
+              "bare, after another session":
+                  lambda run: bare(run, after_session=True),
+              "kernel_times": helper}
+    result = {}
+    for region, run in regions.items():
+        seen = {name: [] for name in setups}
+        for _ in range(trials):
+            for name, trial in setups.items():
+                seen[name].append(trial(run))
+        ref = collections.Counter()
+        for trials_seen in seen.values():
+            for c, _ in trials_seen:
+                ref |= c
+        total = sum(ref.values())
+        log(f"--profile-misses, {region}: {trials} profiles under each "
+            f"set-up; the reference holds {total} kernel launches of "
+            f"{len(ref)} kernels")
+        result[region] = {"reference_launches": total}
+        for name, trials_seen in seen.items():
+            lost = [ref - c for c, _ in trials_seen]
+            n_lost = [sum(l.values()) for l in lost]
+            names = collections.Counter()
+            for l in lost:
+                names.update(l)
+            row = {"trials": trials,
+                   "trials_with_loss": sum(n > 0 for n in n_lost),
+                   "launches_lost": n_lost,
+                   "kernels_lost": {k[:60]: v for k, v in names.items()}}
+            if name == "kernel_times":
+                row["stand_ins_recorded"] = [s for _, s in trials_seen]
+            result[region][name] = row
+            log(f"  {name}: {row['trials_with_loss']} of {trials} profiles "
+                f"lost launches ({n_lost}); lost, by kernel: "
+                f"{row['kernels_lost']}"
+                + (f"; stand-ins recorded {row['stand_ins_recorded']}"
+                   if name == "kernel_times" else ""))
+    print(json.dumps({"harness": "chip_smoke.py --profile-misses",
+                      "regions": result}), flush=True)
+    return result
+
+
+def phase_golden(pt, dev="cuda", families=None, seeds=(0,)):
+    """--golden: every reference family at its full iteration count on
+    ``dev`` at each of ``seeds``, each row with both tiers' checks, and the
+    family's ELBO aggregate over the seeds with the figure and robustness
+    tiers' ELBO checks, in GOLDEN_r04.json's layout; checks nothing."""
+    from modulatedgps_tpu_torch.demos import golden
+    platform = "gpu" if torch.device(dev).type == "cuda" else "cpu"
+    results = {}
+    for name in families or golden.FAMILIES:
+        target = golden.FAMILIES[name]
+        rows = []
+        for seed in seeds:
+            t0 = time.perf_counter()
+            row, _ = quietly(golden.run_family, name, seed=seed,
+                             platform=platform)
+            row["seconds"] = round(time.perf_counter() - t0, 2)
+            row["checks_figure"] = golden.evaluate_checks(name, row, "figure")
+            rows.append(row)
+            log(f"--golden {name} seed {seed}: {json.dumps(row)}")
+        fam = golden.aggregate(rows, target)
+        fam["elbo_robust_tier"] = [bool(r["elbo"] >= target
+                                        - fam["elbo_tol_robust"])
+                                   for r in rows]
+        fam["elbo_figure_tier"] = [bool(r["elbo"] >= target
+                                        - fam["elbo_tol_figure"])
+                                   for r in rows]
+        fam["seeds"] = {str(r["seed"]): r for r in rows}
+        fam["iters"] = rows[0]["iters"]
+        results[name] = fam
+        log(f"--golden {name}: {json.dumps(fam)}")
+    kind = (torch.cuda.get_device_name(0) if platform == "gpu" else "cpu")
+    print(json.dumps({"harness": "chip_smoke.py --golden",
+                      "regime": f"{kind}, full reference iteration counts, "
+                                f"seeds {list(seeds)}",
+                      "families": results}), flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3668,6 +4384,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--cold-grads"]:
         phase_cold_grads(pt)
         return 1 if failures else 0
+    if sys.argv[1:2] == ["--golden"]:
+        phase_golden(pt)
+        return 0
+    if sys.argv[1:2] == ["--profile-misses"]:
+        phase_profile_misses(pt)
+        return 0
     if sys.argv[1:2] == ["--against"]:
         phase_against(sys.argv[2])
         for f in failures:
@@ -3692,6 +4414,7 @@ def main() -> int:
     phase_path_c_reference(pt)
     phase_vgp(pt)
     phase_vgp_reference(pt)
+    phase_demos(pt)
     log(f"cholesky_factor launches: {counts['cholesky_factor']} in "
         f"{TRAIN_STEPS} steps at M={M_FULL} (#16's shape), "
         f"{ref_counts['cholesky_factor']} in phase 4 at M={M_REF} (#15's)")

@@ -1,8 +1,10 @@
 """PyTorch and CUDA port of modulatedgps_tpu: the SMGP and SMGPModified
 (Gaussian, MultiClass or Bernoulli experts) serving path, joint posterior
 sampling, and the Adam train step with checkpoints and multi-start,
-whitened or not; the VGP with scipy's L-BFGS; the data loaders and the
-host utilities (k-means, metrics, evaluation).
+whitened or not; the VGP with scipy's L-BFGS; the data loaders, the host
+utilities (k-means, metrics, evaluation, plotting, profiling), the demo
+CLIs (``python -m modulatedgps_tpu_torch.demos.<name>``) and reading the
+JAX package's npz checkpoints.
 
 The JAX package beside this one is the reference each ported part is held
 against.  Plain tensor code is PyTorch; each of the JAX package's Pallas

@@ -1,6 +1,7 @@
-"""The data loaders: a copy of modulatedgps_tpu/data/ (numpy, pandas,
-scikit-learn's split and ctypes only), kept here because importing the JAX
-package's copy imports jax (modulatedgps_tpu/__init__.py)."""
+"""The data loaders: a copy of modulatedgps_tpu/data/ (numpy, the csv
+module and ctypes only: the JAX package's copy reads the John Doe CSV with
+pandas and splits it with scikit-learn), kept here because importing that
+copy imports jax (modulatedgps_tpu/__init__.py)."""
 from .datasets import (
     load_toy_multimodal_data,
     load_toy_data_categorical,

@@ -8,7 +8,9 @@ unseeded global numpy — dataset_utils.py:117-125 — which SURVEY.md §4 flags
 as non-reproducible; we fix that while keeping the same distribution).
 
 A copy of modulatedgps_tpu/data/datasets.py: the same generators, draws
-and filters, bit for bit (tests/test_torch_data_utils.py).
+and filters, bit for bit (tests/test_torch_data_utils.py).  The John Doe
+loaders read the CSV with the csv module and split it with numpy in
+scikit-learn's order, so they need neither pandas nor scikit-learn.
 """
 from __future__ import annotations
 
@@ -100,19 +102,26 @@ _SEAM = ("FAST_SEAM", "MEDIUM_SEAM", "SEAM")
 _FEATURES = ["stumpsX", "stumpsY"]
 
 
-def _load_john_doe_frame(csv_path: str | None):
-    import pandas as pd
+def _john_doe_columns(csv_path: str | None):
+    """The John Doe filter (batterRuns in {0, 1, 4, 6}, seam bowling,
+    right-arm) read with the csv module: (features [N, 2] float64,
+    batterRuns [N] int64), the rows and values pandas.read_csv gives."""
+    import csv
     path = csv_path or os.path.join(_DATA_DIR, "john_doe_dataset.csv")
-    df = pd.read_csv(path)
-    df = df[df["batterRuns"].isin([0, 1, 4, 6])]
-    df = df[df["bowlingStyle"].isin(_SEAM)]
-    df = df[df["rightArmedBowl"] == True]  # noqa: E712
-    return df
+    feats, runs = [], []
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            r = int(row["batterRuns"])
+            if (r in (0, 1, 4, 6) and row["bowlingStyle"] in _SEAM
+                    and row["rightArmedBowl"] == "True"):
+                feats.append([float(row[c]) for c in _FEATURES])
+                runs.append(r)
+    return np.array(feats, dtype=np.float64), np.array(runs, dtype=np.int64)
 
 
 def load_john_doe_arrays_native(csv_path: str | None = None):
     """The John Doe filter pipeline through the native CSV engine
-    (native/mgp_loader.cpp): same rows as _load_john_doe_frame, no pandas.
+    (native/mgp_loader.cpp): the same rows as _john_doe_columns.
     Returns (features [N, 2], batterRuns [N, 1])."""
     from . import native
     path = csv_path or os.path.join(_DATA_DIR, "john_doe_dataset.csv")
@@ -127,31 +136,30 @@ def load_john_doe_arrays_native(csv_path: str | None = None):
 
 
 def _split(features, targets, rng: np.random.Generator | None, test_size=0.2):
-    from sklearn.model_selection import train_test_split
+    """scikit-learn's train_test_split(test_size, random_state=seed) with
+    the seed drawn from rng, as numpy: ShuffleSplit's permutation of a
+    RandomState(seed), the first ceil(test_size N) rows the test set."""
     seed = None if rng is None else int(rng.integers(0, 2 ** 31 - 1))
-    Xtr, Xte, Ytr, Yte = train_test_split(features, targets, test_size=test_size,
-                                          random_state=seed)
-    Xtr, Xte = Xtr.to_numpy(), Xte.to_numpy()
-    Ytr = Ytr.to_numpy().reshape((-1, 1))
-    Yte = Yte.to_numpy().reshape((-1, 1))
-    return Xtr, Xte, Ytr, Yte
+    n = len(targets)
+    n_test = int(np.ceil(test_size * n))
+    perm = np.random.RandomState(seed).permutation(n)
+    test, train = perm[:n_test], perm[n_test:]
+    return (features[train], features[test], targets[train].reshape(-1, 1),
+            targets[test].reshape(-1, 1))
 
 
 def load_john_doe_runs(csv_path: str | None = None,
                        rng: np.random.Generator | None = None):
     """Cricket deliveries → (stumpsX, stumpsY) → batterRuns ∈ {0,1,4,6};
     seam bowling, right-arm only; 80/20 split — dataset_utils.py:8-37."""
-    df = _load_john_doe_frame(csv_path)[_FEATURES + ["batterRuns"]]
-    Xtr, Xte, Ytr, _ = _split(df[_FEATURES], df["batterRuns"], rng)
+    feats, runs = _john_doe_columns(csv_path)
+    Xtr, Xte, Ytr, _ = _split(feats, runs, rng)
     return len(Xtr), Xtr, Ytr, Xte, _FEATURES
 
 
 def load_john_doe(csv_path: str | None = None,
                   rng: np.random.Generator | None = None):
     """Binary boundary target: {0,1}→0, {4,6}→1 — dataset_utils.py:40-81."""
-    df = _load_john_doe_frame(csv_path)
-    df = df.copy()
-    df["boundary"] = df["batterRuns"].map(lambda r: 0 if r in (0, 1) else 1)
-    df = df[_FEATURES + ["boundary"]]
-    Xtr, Xte, Ytr, _ = _split(df[_FEATURES], df["boundary"], rng)
+    feats, runs = _john_doe_columns(csv_path)
+    Xtr, Xte, Ytr, _ = _split(feats, (runs >= 4).astype(np.int64), rng)
     return len(Xtr), Xtr, Ytr, Xte, _FEATURES

@@ -64,3 +64,24 @@ def save_figure(fig, out_dir: str, name: str):
     path = os.path.join(out_dir, name)
     fig.savefig(path, dpi=110)
     print(f"figure -> {path}")
+
+
+def predict_in_batches(fn, X, batch: int = 500):
+    """fn over host-side chunks of X (about ``batch`` rows each), its
+    outputs (a tensor or a tuple of them) moved to numpy and concatenated
+    along axis -2, as demos/_common.py:84-98 does (the reference's
+    demos/demo_tf2.py:62-68)."""
+    import numpy as np
+    n_batches = max(int(X.shape[0] / batch), 1)
+    outs = None
+    for xb in np.array_split(X, n_batches):
+        res = fn(xb)
+        if not isinstance(res, tuple):
+            res = (res,)
+        if outs is None:
+            outs = [[] for _ in res]
+        for acc, r in zip(outs, res):
+            acc.append(r.detach().cpu().numpy() if hasattr(r, "detach")
+                       else np.asarray(r))
+    cat = [np.concatenate(a, axis=-2) for a in outs]
+    return cat[0] if len(cat) == 1 else tuple(cat)

@@ -1,0 +1,27 @@
+"""2-D quadrant classification with outliers.
+
+Mirrors demos/demo_multiclass_2d.py (the reference's
+demos/demo_tf2_2d_modified_multiclass.py): a quadrant indicator with 10%
+flips, K=2, MultiClass prediction and Gaussian assignment likelihoods.
+
+    python -m modulatedgps_tpu_torch.demos.demo_multiclass_2d [--platform cpu]
+"""
+from modulatedgps_tpu_torch.data import load_toy_2d_data_categorical
+from modulatedgps_tpu_torch.demos._runner import DemoConfig, run
+
+CONFIG = DemoConfig(
+    name="demo_multiclass_2d",
+    load_data=load_toy_2d_data_categorical,
+    K=2, iters=2000,
+    pred_kernel=(0.1, 1.0), assign_kernel=(0.1, 1.0),
+    multiclass=True, plot_1d=False,
+)
+
+
+def main(argv=None):
+    """Run the demo; returns (model, iters, elbos)."""
+    return run(CONFIG, argv)
+
+
+if __name__ == "__main__":
+    main()

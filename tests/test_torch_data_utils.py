@@ -71,16 +71,17 @@ def no_native(monkeypatch):
 
 
 def test_john_doe_csv_loads_the_same_through_the_numpy_path(no_native):
+    """The port's csv + numpy reader keeps pandas' rows and values."""
     from modulatedgps_tpu.data.datasets import _load_john_doe_frame as jframe
-    from modulatedgps_tpu_torch.data.datasets import _load_john_doe_frame
-    cols = ["stumpsX", "stumpsY", "batterRuns"]
-    got, want = _load_john_doe_frame(None)[cols], jframe(None)[cols]
-    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
-    assert len(got) > 100
+    from modulatedgps_tpu_torch.data.datasets import _john_doe_columns
+    feats, runs = _john_doe_columns(None)
+    want = jframe(None)[["stumpsX", "stumpsY", "batterRuns"]].to_numpy()
+    np.testing.assert_array_equal(np.c_[feats, runs], want)
+    assert runs.dtype == np.int64 and len(runs) > 100
     if jnative.available():   # the native reader keeps the same rows
-        feats, runs = jdata.datasets.load_john_doe_arrays_native()
-        np.testing.assert_array_equal(feats, got.to_numpy()[:, :2])
-        np.testing.assert_array_equal(runs[:, 0], got.to_numpy()[:, 2])
+        nfeats, nruns = jdata.datasets.load_john_doe_arrays_native()
+        np.testing.assert_array_equal(nfeats, feats)
+        np.testing.assert_array_equal(nruns[:, 0], runs)
 
 
 def _batches(module, X, Y, n, **kw):

@@ -54,6 +54,51 @@ def test_port_imports_without_jax_and_builds_nothing():
     assert int(res.stdout.strip()) >= 15
 
 
+_IMPORT_NO_JAX_SIDE = """
+import importlib, pkgutil, sys
+for name in ("jax", "modulatedgps_tpu", "demos", "benchmarks", "_runner",
+             "_common", "golden_parity"):
+    sys.modules[name] = None       # importing any of them now raises
+import modulatedgps_tpu_torch as pkg
+for name in NAMES:
+    importlib.import_module(name)
+for m, v in sys.modules.items():
+    top = m.split(".")[0]
+    assert v is None or top not in ("jax", "jaxlib", "modulatedgps_tpu",
+                                    "demos", "benchmarks"), m
+print("ok")
+"""
+DEMO_LAYER = ["modulatedgps_tpu_torch.demos." + n for n in (
+    "_common", "_runner", "golden", "demo_multimodal_1d",
+    "demo_multimodal_1d_modified", "demo_multiclass_1d", "demo_2d",
+    "demo_multiclass_2d", "demo_john_doe", "demo_john_doe_multiclass",
+    "demo_svgp", "demo_multiclass_svgp", "demo_vgp_bernoulli")] + [
+    "modulatedgps_tpu_torch.utils.profiling",
+    "modulatedgps_tpu_torch.utils.plotting",
+    "modulatedgps_tpu_torch.ops.cost",
+    "modulatedgps_tpu_torch.training.checkpoint"]
+
+
+def test_demo_layer_imports_nothing_of_the_jax_side():
+    """The demos, golden criteria, profiling, plotting and the JAX
+    checkpoint reader import neither jax nor the JAX package, its demos or
+    its benchmarks (they keep their own copies), and neither does
+    chip_smoke.py."""
+    import ast
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = f"NAMES = {DEMO_LAYER!r}" + _IMPORT_NO_JAX_SIDE
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+    imported |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module}
+    assert not {m for m in imported if m.split(".")[0] in (
+        "jax", "modulatedgps_tpu", "demos", "benchmarks")}, imported
+
+
 def test_cpu_tensors_launch_nothing():
     pt.reset_launch_counts()
     X = torch.randn(20, 3)
