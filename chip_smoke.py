@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's SMGP serving path, train step, joint
 posterior sampling, the unwhitened SMGP, the joint posterior's gradient,
-the multiclass SMGPModified and the VGP with scipy's L-BFGS once on one
-NVIDIA card.
+the multiclass SMGPModified, the VGP with scipy's L-BFGS, the demo CLIs
+and the parallel paths once on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of a checkout; one card
     python3 chip_smoke.py --against DIR   # only the build and the A/B below
@@ -128,7 +128,19 @@ Phases, each printing its own lines:
      -0.1), the figure tier printed beside it; the flagship's model's step
      regime: ms an Adam step, kernel ms a step and the busy share from
      kernel-level events, launches a step by family, a served predict_y of
-     500 points, and the fit's seconds; the phase's wall time.
+     500 points, and the fit's seconds; the phase's wall time;
+ 20. modulatedgps_tpu_torch.parallel at one rank on an NCCL group over a
+     file:// store (destroyed at the end), phase 5's shapes: (a) 3
+     replicated make_parallel_train_step steps against 3 make_train_step
+     steps from the same state and seed (bit equality printed; within
+     GRAD_TOL), (b) the inducing-sharded ELBO against the single-device
+     one, its gradient and 3 inducing-sharded steps with #1, its pullback,
+     #2, #4, #10/#11, #15 and #14 launched, q_sqrt and its Adam moments 0
+     above the global diagonal, a profile with no library solver in it;
+     (c) the sharded loss, gradients and predict_f at M=1024 against the
+     f64 CPU path; (d) step ms of (a), (b) and the single-device step,
+     peak memory.  The expert-sharded step needs an expert axis over 1, so
+     it is checked on the CPU only (tests/test_torch_parallel.py).
 The line before the last is a JSON object with every kernel's launches
 (on the path that runs it: the train step, sampling for #5, path A for #4,
 the served batches for #17, phase 5's SVGP regression for the one-pass
@@ -1999,6 +2011,17 @@ GRAD_TOL_COLD = {"assign_layer.kernel.variance.raw": 2.5e-2,
                  "assign_layer.q_sqrt.raw": 5.5e-2}
 
 
+def grad_inputs(M=M_REF, batch=BATCH_REF, seed=0):
+    """(arrays, X, Y, z, g) of phase 6's references: smgp_arrays(M, seed),
+    a batch and its noise, drawn from the same generator in that order."""
+    arrays, rng = smgp_arrays(M, seed)
+    X = rng.uniform(-3, 3, size=(batch, D_IN))
+    Y = rng.normal(size=(batch, 1))
+    z = rng.normal(size=(NUM_SAMPLES, batch, K_EXPERTS))
+    g = rng.gumbel(size=(NUM_SAMPLES, batch, K_EXPERTS))
+    return arrays, X, Y, z, g
+
+
 def loss_and_grads(pt, arrays, X, Y, z, g, device, dtype, temperature,
                    whiten=True):
     model = build_model(pt, arrays, device, dtype, jitter=JITTER,
@@ -2014,37 +2037,45 @@ def loss_and_grads(pt, arrays, X, Y, z, g, device, dtype, temperature,
 
 
 def phase_grad_reference(pt, dev="cuda"):
+    """Phase 6; returns the CPU runs ({tau: {"cpu f32": ..., "f64": ...}}),
+    which phase 20 (c) takes as its references: the same state, batch and
+    noise."""
     log(f"== phase 6: loss and gradients, {dev} f32 vs CPU f64 (the f32 CPU "
         f"path beside), M={M_REF} batch={BATCH_REF} S={NUM_SAMPLES}")
-    arrays, rng = smgp_arrays(M_REF)
-    X = rng.uniform(-3, 3, size=(BATCH_REF, D_IN))
-    Y = rng.normal(size=(BATCH_REF, 1))
-    z = rng.normal(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
-    g = rng.gumbel(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
+    arrays, X, Y, z, g = grad_inputs()
     runs = {dev: (dev, torch.float32), "cpu f32": ("cpu", torch.float32),
             "f64": ("cpu", torch.float64)}
+    cpu_runs = {}
     for tau in GRAD_TEMPERATURES:
         log(f"  temperature {tau:g}")
         grads = {label: loss_and_grads(pt, arrays, X, Y, z, g, d, t, tau)
                  for label, (d, t) in runs.items()}
         compare_grads("", grads, dev, GRAD_TOL, GRAD_TOL_COLD, tau)
+        cpu_runs[tau] = {k: grads[k] for k in ("cpu f32", "f64")}
+    return cpu_runs
 
 
-def compare_grads(label, runs, dev, grad_tol, cold_tol, temperature):
+def rel_dist(runs, key, name):
+    """max|runs[key][name] - f64| / max|f64|."""
+    want = runs["f64"][name]
+    return float((runs[key][name] - want).abs().max() / want.abs().max())
+
+
+def compare_grads(label, runs, dev, grad_tol, cold_tol, temperature,
+                  beside=(("cpu f32", "f32 CPU"),)):
     """Each gradient of ``runs[dev]`` against ``runs["f64"]`` (max|err| /
-    max|f64|), the f32 CPU path's distance beside: the assignment layer's
-    leaves at ``cold_tol`` below temperature 1, every leaf at ``grad_tol``
-    otherwise."""
-    want = runs["f64"]
+    max|f64|), the distance of each run in ``beside`` (key, label) printed
+    with it: the assignment layer's leaves at ``cold_tol`` below
+    temperature 1, every leaf at ``grad_tol`` otherwise."""
     for name, tol in grad_tol.items():
         if temperature < 1.0 and name.startswith("assign_layer."):
             tol = cold_tol[name]
-        rel, cpu_rel = (float((runs[k][name] - want[name]).abs().max()
-                              / want[name].abs().max())
-                        for k in (dev, "cpu f32"))
+        rel = rel_dist(runs, dev, name)
+        others = "; ".join(f"{what} {rel_dist(runs, key, name):.3e}"
+                           for key, what in beside)
         check(rel <= tol and finite(runs[dev][name]),
-              f"{label}{name}: max|err| / max|f64| {rel:.3e} (f32 CPU "
-              f"{cpu_rel:.3e}; tolerance {tol:g})")
+              f"{label}{name}: max|err| / max|f64| {rel:.3e} ({others}; "
+              f"tolerance {tol:g})")
 
 
 def finite(t):
@@ -3292,10 +3323,12 @@ def swapped(entries):
 
 
 def phase_cold_grads(pt, dev="cuda"):
-    """What GRAD_TOL_COLD and the split on both SMGP layers rest on, printed
-    and not checked: (1) phase 6's assignment leaves at tau = 1e-2 (M=1024,
-    batch 2048) for each of COLD_SEEDS, the card's and the f32 CPU path's
-    distance from f64 with the split on each of SPLIT_CHOICES; (2) at seed
+    """What GRAD_TOL_COLD, INDUCING_COLD_FACTOR and the split on both SMGP
+    layers rest on, printed and not checked: (1) phase 6's assignment
+    leaves at tau = 1e-2 (M=1024, batch 2048) for each of COLD_SEEDS, the
+    card's and the f32 CPU path's distance from f64 with the split on each
+    of SPLIT_CHOICES, and phase 20 (c)'s sharded program's on the card and
+    in f32 on the CPU (one-rank groups); (2) at seed
     0, the card with one kernel family at a time run as its plain version;
     (3) phase 16's SE model at tau = 1e-2 with the split on both layers and
     on the assignment layer only; (4) phase 5's step at M=4096 for each
@@ -3314,15 +3347,16 @@ def phase_cold_grads(pt, dev="cuda"):
     log(f"== --cold-grads (1): phase 6's assignment leaves at tau = 1e-2, "
         f"M={M_REF} batch={BATCH_REF} S={NUM_SAMPLES}, max|err| / max|f64| "
         f"({', '.join(short)}) by seed and split layers")
+    from modulatedgps_tpu_torch import parallel as par
     for seed in COLD_SEEDS:
-        arrays, rng = smgp_arrays(M_REF, seed)
-        X = rng.uniform(-3, 3, size=(BATCH_REF, D_IN))
-        Y = rng.normal(size=(BATCH_REF, 1))
-        z = rng.normal(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
-        g = rng.gumbel(size=(NUM_SAMPLES, BATCH_REF, K_EXPERTS))
+        inputs = grad_inputs(seed=seed)
 
         def run(d, t):
-            return loss_and_grads(pt, arrays, X, Y, z, g, d, t, 1e-2)
+            return loss_and_grads(pt, *inputs, d, t, 1e-2)
+
+        def run_sharded(d):
+            with one_rank_group(par, d) as mesh:
+                return sharded_loss_and_grads(pt, par, mesh, *inputs, d, 1e-2)
 
         want = run("cpu", torch.float64)
         for which in SPLIT_CHOICES:
@@ -3332,6 +3366,10 @@ def phase_cold_grads(pt, dev="cuda"):
             log(f"  seed {seed}, split {which:6s}: card {fmt(card)} | f32 CPU "
                 f"{fmt(cpu)} | card / CPU "
                 f"{' '.join(f'{a / b:.2f}' for a, b in zip(card, cpu))}")
+        card, cpu = dist(run_sharded(dev), want), dist(run_sharded("cpu"), want)
+        log(f"  seed {seed}, sharded     : card {fmt(card)} | f32 CPU "
+            f"{fmt(cpu)} | card / CPU "
+            f"{' '.join(f'{a / b:.2f}' for a, b in zip(card, cpu))}")
         if seed == COLD_SEEDS[0]:
             log("  (2) seed 0, split both, one kernel family as its plain "
                 "version on the card:")
@@ -3728,10 +3766,13 @@ def _replay_kxz_vjp(a, kw):
     kind, needs = kw.get("kind", "rbf"), kw.get("needs", (True,) * 4)
     got = kxz_kernel.kxz_vjp(*a, **kw)
     plain = kxz_kernel.kxz_vjp_plain(*a, kind, needs)
-    exact = kxz_eager_pullback(*(t.double() for t in a[:4]), a[4].double(),
-                               kind, needs)
+    a64 = [t.double() for t in a[:4]]
+    exact = kxz_eager_pullback(*a64, a[4].double(), kind, needs)
+    # The pullback of |K_bar|: for the lengthscale and the variance, whose
+    # dK / d(theta) is >= 0 entrywise, the sum of |terms| of their gradient.
+    absum = kxz_eager_pullback(*a64, a[4].double().abs(), kind, needs)
     ok, worst = True, 0.0
-    for leaf, g, p, e in zip(KXZ_LEAVES, got, plain, exact):
+    for leaf, g, p, e, s in zip(KXZ_LEAVES, got, plain, exact, absum):
         if e is None:
             ok = ok and g is None
             continue
@@ -3744,14 +3785,22 @@ def _replay_kxz_vjp(a, kw):
         # over [25, 1] x [300, 1], K(Z, Z)'s Z-bar near 0), the f32 closed
         # form itself lies further than tol from f64: the kernel is then
         # held within 2x the closed form's distance, as the Cholesky rows
-        # hold it to the plain version's.
+        # hold it to the plain version's.  A hyperparameter's gradient is
+        # one f32 sum over every entry of K_bar: where it cancels (the
+        # inducing-sharded step's Kmn lengthscale, 1.5e5 below its terms),
+        # the kernel is held within eps32 x sum|terms|, the rounding of one
+        # f32 sum, far below what a tile dropped or counted twice moves.
+        rounding = (torch.finfo(torch.float32).eps * float(s.abs().max())
+                    if leaf in ("lengthscales", "variance") else 0.0)
         good = finite(g) and ((err <= tol and err_p <= tol)
-                              or (err_32 > tol and err <= 2 * err_32))
+                              or (err_32 > tol and err <= 2 * err_32)
+                              or err <= rounding)
         if not good or err > tol:
             log(f"    kxz_vjp {tuple(a[0].shape)}x{tuple(a[1].shape)} "
                 f"{kind} needs {needs} {leaf}: vs f64 {err:.3e}, vs plain "
                 f"f32 {err_p:.3e}, plain f32 vs f64 {err_32:.3e}, tol "
-                f"{tol:.3e}: {'ok' if good else 'FAIL'}")
+                f"{tol:.3e}, eps32 x sum|terms| {rounding:.3e}: "
+                f"{'ok' if good else 'FAIL'}")
         ok = ok and good
     return ok, worst
 
@@ -3790,7 +3839,10 @@ def _replay_trsm(transpose):
         rhs = torch.eye(L.shape[0], device=L.device) if B is None else B
         res_k = float((op @ got - rhs).abs().max())
         res_p = float((op @ want - rhs).abs().max())
-        return (finite(got) and res_k <= 3 * res_p,
+        # Phase 2's rule for #2 and #4: within 3x the plain version's
+        # residual + a few ulps of max|rhs| (trsm_wave_rows, trsm_wide_rows).
+        floor = 1e-6 * float(rhs.abs().max())
+        return (finite(got) and res_k <= 3 * res_p + floor,
                 float((got - want).abs().max()))
     return replay
 
@@ -3905,10 +3957,10 @@ REPLAYS = {
 }
 
 
-def replay_demo_calls(calls, expected):
+def replay_demo_calls(calls, expected, where="the demos' shapes"):
     """Every recorded call replayed, kernel against plain; one check a
     wrapper over all its shapes, and one that every wrapper in
-    ``expected`` was recorded."""
+    ``expected`` was recorded.  ``where`` names the calls' source."""
     by_name = {}
     for (name, sig, _), (args, kwargs) in calls.items():
         by_name.setdefault(name, []).append((sig, args, kwargs))
@@ -3927,14 +3979,14 @@ def replay_demo_calls(calls, expected):
                                if isinstance(s, tuple) and s
                                and isinstance(s[0], tuple))
                          for sig, _, _ in by_name[name]})
-        check(not bad, f"{name} at the demos' shapes: {len(by_name[name])} "
+        check(not bad, f"{name} at {where}: {len(by_name[name])} "
               f"recorded calls against the plain version, largest "
               f"max_abs_err {worst:.3e}; shapes {shapes[:6]}"
               + (" ..." if len(shapes) > 6 else "")
               + (f"; failed at {bad}" if bad else ""))
     missing = sorted(set(expected) - set(by_name))
-    check(not missing, f"every wrapper the demos should launch was recorded "
-          f"and replayed at their shapes (none of {missing})")
+    check(not missing, f"every wrapper expected at {where} was recorded "
+          f"and replayed (none of {missing})")
 
 
 # Phase 19: the demo CLIs at the reference demos' own configurations (M=25,
@@ -4371,6 +4423,352 @@ def phase_golden(pt, dev="cuda", families=None, seeds=(0,)):
     return results
 
 
+# ---------------------------------------------------------------- phase 20
+
+PARALLEL_STEPS = 3
+INDUCING_TRAIN_KERNELS = ("kxz", "kxz_vjp", "trsm_lower", "trsm_lower_t",
+                          "tri_tt_matmul", "tri_nt_matmul", "cholesky_factor",
+                          "adam_tril_")
+# (b)'s sharded ELBO against the single-device f32 ELBO of the same state
+# and noise at M=4096: the two differ in the q_sqrt term (the fp32 ring
+# against the 3-pass bf16 split) and in the Cholesky's blocking.  (c) holds
+# the sharded f32 loss within GRAD_TOL["loss"] of f64 at M_REF, phase 6 the
+# single-device one, so the two lie within twice that of each other.
+INDUCING_ELBO_TOL = 2 * GRAD_TOL["loss"]
+# (c)'s assignment leaves at tau = 1e-2: Z, q_mu and q_sqrt at phase 6's
+# GRAD_TOL_COLD.  The kernel variance and lengthscale sum over every
+# near-tie that f32 flips, and which ties flip follows the arithmetic: the
+# sharded program (panels of 128, the full-M solve, the fp32 ring) flips
+# others than the single-device one, on the CPU as on the card.  So these
+# two are held to INDUCING_COLD_FACTOR x the distance of the same sharded
+# program run in f32 on the CPU on the same seed (+ 1e-6), as phase 19
+# holds the flagship to its f32 CPU path.  `chip_smoke.py --cold-grads`
+# prints both over five seeds with their ratio: on an NVIDIA H100 80GB HBM3
+# (700 W) the card's reads 0.55x to 3.88x the CPU's on the variance and
+# 0.63x to 3.98x on the lengthscale (seed 0 the largest on both).
+INDUCING_COLD_FACTOR = 5
+INDUCING_COLD_SCALARS = ("assign_layer.kernel.variance.raw",
+                         "assign_layer.kernel.lengthscales.raw")
+# Kernel names of library solvers that the inducing path must not run.
+LIBRARY_SOLVERS = ("potrf", "getrf", "trsm", "cusolver")
+PARALLEL_FAMILIES = (("nccl", "NCCL collectives"),) + FAMILIES
+
+
+def upper_nonzero_global(block, index):
+    """Entries of a [K, M, M / P] column block (rank ``index``'s columns)
+    above the global diagonal that are not exactly 0."""
+    _, M, width = block.shape
+    cols = index * width + torch.arange(width, device=block.device)
+    upper = torch.arange(M, device=block.device)[:, None] < cols[None, :]
+    return int((block[:, upper] != 0).sum())
+
+
+def timed(dev, fn):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def median_after_first(times):
+    return statistics.median(times[1:]) if len(times) > 1 else times[0]
+
+
+def phase_parallel(pt, dev="cuda", M=M_FULL, batch=BATCH,
+                   steps=PARALLEL_STEPS, cpu_runs=None, M_ref=M_REF,
+                   batch_ref=BATCH_REF):
+    """Phase 20: modulatedgps_tpu_torch.parallel on a process group of one
+    rank (NCCL on the card, gloo on the CPU), over a file:// store in a
+    temporary directory, destroyed at the end.  (a) the replicated
+    data-parallel step against the single-device step; (b) the
+    inducing-sharded ELBO, its gradient and its steps; (c) the
+    inducing-sharded loss, gradients and predict_f at M_ref against the
+    f64 CPU path; (d) the step times, peak memory and a kernel breakdown,
+    printed with (a) and (b)."""
+    from modulatedgps_tpu_torch import parallel as par
+    t_phase = time.perf_counter()
+    log(f"== phase 20: the parallel paths on one rank ({dev}), M={M} "
+        f"K={K_EXPERTS} D={D_IN} S={NUM_SAMPLES} batch={batch} f32")
+    inputs = grad_inputs(M_ref, batch_ref)
+    with one_rank_group(par, "cpu") as mesh:
+        cpu_sharded = {tau: sharded_loss_and_grads(pt, par, mesh, *inputs,
+                                                   "cpu", tau)
+                       for tau in GRAD_TEMPERATURES}
+    with one_rank_group(par, dev) as mesh:
+        out = {"replicated": parallel_replicated(pt, par, mesh, dev, M, batch,
+                                                 steps)}
+        out["inducing"] = parallel_inducing(pt, par, mesh, dev, M, batch,
+                                            steps, out["replicated"])
+        parallel_inducing_reference(pt, par, mesh, dev, inputs, cpu_runs,
+                                    cpu_sharded)
+        log("  the expert-sharded step is checked on the CPU only "
+            "(tests/test_torch_parallel.py, gloo ranks on a 2 x 2 mesh): one "
+            "card gives an expert axis of 1, which replicates")
+    log(f"phase 20 wall time: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_group(par, dev):
+    """A process group of this one process (NCCL on the card, gloo on the
+    CPU) over a file:// store in a temporary directory, and its ("data",
+    "expert") mesh; the group is destroyed on the way out."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        par.initialize_multihost(f"file://{tmp}/store", num_processes=1,
+                                 process_id=0, device=dev)
+        try:
+            mesh = par.make_mesh(device=dev)
+            log(f"process group: backend {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}, mesh {mesh}")
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "the one-rank process group destroyed")
+
+
+def parallel_batch(pt, dev, M, batch):
+    arrays, rng = smgp_arrays(M)
+    X = torch.as_tensor(rng.uniform(-3, 3, size=(batch, D_IN)),
+                        dtype=torch.float32, device=dev)
+    Y = torch.as_tensor(rng.normal(size=(batch, 1)), dtype=torch.float32,
+                        device=dev)
+    return arrays, X, Y
+
+
+def parallel_replicated(pt, par, mesh, dev, M, batch, steps):
+    """(a) make_parallel_train_step (replicated) against make_train_step:
+    the same state and generator seed, in turns; the loss and every leaf
+    bit-equal, or within GRAD_TOL of each other's scale."""
+    on_card = torch.device(dev).type == "cuda"
+    arrays, X, Y = parallel_batch(pt, dev, M, batch)
+    single = build_model(pt, arrays, dev, torch.float32)
+    model = par.replicate_state(mesh, build_model(pt, arrays, dev,
+                                                  torch.float32))
+    step_single = pt.make_train_step(pt.Adam(single, LR))
+    step = par.make_parallel_train_step(pt.Adam(model, LR), mesh, K=K_EXPERTS)
+    Xl, Yl = par.shard_batch(mesh, X, Y)
+    gens = [torch.Generator(device=dev).manual_seed(0) for _ in range(2)]
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    losses, times = ([], []), ([], [])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        loss, ms = timed(dev, lambda: step_single(single, gens[0], X, Y))
+        losses[0].append(float(loss))
+        times[0].append(ms)
+        pt.reset_launch_counts()
+        loss, ms = timed(dev, lambda: step(model, gens[1], Xl, Yl))
+        for name, n in pt.launch_counts().items():
+            if name in counts:
+                counts[name] += n
+        losses[1].append(float(loss))
+        times[1].append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    log(f"(a) replicated make_parallel_train_step, {steps} steps: losses "
+        f"{losses[1]} (single device {losses[0]}); launches {counts}")
+    if on_card:
+        missing = [k for k, n in counts.items() if not n]
+        check(not missing, f"(a) every train-path kernel launched on the "
+              f"parallel step (none of {missing})")
+    leaves = dict(single.named_parameters())
+    with torch.no_grad():
+        same = losses[0] == losses[1] and all(
+            torch.equal(p, leaves[n]) for n, p in model.named_parameters())
+        rel = {n: float((p - leaves[n]).abs().max() / leaves[n].abs().max())
+               for n, p in model.named_parameters()}
+    rel["loss"] = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"(a) bit-equal to the single-device steps (loss and every leaf): "
+        f"{same}; largest max|diff| / max|leaf| {max(rel.values()):.3e}")
+    check(all(rel[n] <= GRAD_TOL[n] for n in GRAD_TOL),
+          f"(a) loss and every leaf within GRAD_TOL of the single-device "
+          f"steps' ({ {n: f'{v:.2e}' for n, v in rel.items() if v} })")
+    out = {"bit_equal": same, "step_ms": median_after_first(times[1]),
+           "single_step_ms": median_after_first(times[0]),
+           "step_ms_all": times[1], "single_step_ms_all": times[0],
+           "peak_gib": peak}
+    log(f"(d) step ms (host clock to synchronize, in turns, median of steps "
+        f"2-{steps}): single device {out['single_step_ms']:.3f} "
+        f"{[round(t, 3) for t in times[0]]}, replicated parallel "
+        f"{out['step_ms']:.3f} {[round(t, 3) for t in times[1]]}; peak "
+        f"device memory of both models {peak:.2f} GiB")
+    return out
+
+
+def parallel_inducing(pt, par, mesh, dev, M, batch, steps, replicated):
+    """(b) inducing_sharded_elbo against the single-device ELBO, its
+    gradient, then make_inducing_sharded_train_step's steps with every
+    kernel of the path launched, q_sqrt and its moments exactly 0 above
+    the global diagonal, a profile with no library solver."""
+    from modulatedgps_tpu_torch.parallel.collectives import share
+    from modulatedgps_tpu_torch.parallel.mesh import axis_group
+    on_card = torch.device(dev).type == "cuda"
+    arrays, X, Y = parallel_batch(pt, dev, M, batch)
+    group, index, _ = axis_group(mesh, "data")
+    model = build_model(pt, arrays, dev, torch.float32)
+    Xl, Yl = par.shard_batch(mesh, X, Y)
+    with torch.no_grad():
+        single = float(model.elbo(torch.Generator(device=dev).manual_seed(1),
+                                  X, Y))
+    sharded = par.inducing_shard_state(mesh, model)
+    del model
+    elbo, ms = timed(dev, lambda: par.inducing_sharded_elbo(
+        sharded, torch.Generator(device=dev).manual_seed(1), Xl, Yl, mesh))
+    value = float(elbo.detach())
+    rel = abs(value - single) / abs(single)
+    check(rel <= INDUCING_ELBO_TOL,
+          f"(b) inducing-sharded ELBO {value:.8f} against the "
+          f"single-device f32 ELBO {single:.8f}: relative {rel:.3e} "
+          f"(<= {INDUCING_ELBO_TOL:g}; forward {ms:.1f} ms)")
+    _, ms = timed(dev, lambda: share(-elbo, group).backward())
+    grads = {n: p.grad for n, p in sharded.named_parameters()}
+    check(all(finite(g) for g in grads.values())
+          and all(upper_nonzero_global(grads[f"{layer}.q_sqrt.raw"], index)
+                  == 0 for layer in ("pred_layer", "assign_layer")),
+          f"(b) every gradient finite, q_sqrt's exactly 0 above the global "
+          f"diagonal (backward {ms:.1f} ms)")
+
+    opt = pt.Adam(sharded, LR)
+    step = par.make_parallel_train_step(opt, mesh, K=K_EXPERTS,
+                                        shard_inducing=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # One step with every wrapper call recorded, each replayed against its
+    # plain version at the shapes this path gives it; then the counted
+    # steps, with the recorded copies freed.
+    with recording_wrapper_calls() as calls:
+        first, _ = timed(dev, lambda: step(sharded, gen, Xl, Yl))
+    check(math.isfinite(float(first)), f"(b) the recorded inducing-sharded "
+          f"step's loss finite: {float(first)}")
+    if on_card:
+        replay_demo_calls(calls, set(INDUCING_TRAIN_KERNELS),
+                          "(b) the inducing-sharded step's shapes")
+    del calls
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    pt.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        loss, ms = timed(dev, lambda: step(sharded, gen, Xl, Yl))
+        losses.append(float(loss))
+        times.append(ms)
+    counts = {k: n for k, n in pt.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    check(all(math.isfinite(x) for x in losses),
+          f"(b) {steps} inducing-sharded steps after the recorded one, losses "
+          f"finite: {losses}")
+    log(f"(b) launches in the inducing-sharded steps: {counts}")
+    if on_card:
+        missing = [k for k in INDUCING_TRAIN_KERNELS if not counts.get(k)]
+        check(not missing, f"(b) #1, its pullback, #2, #4, #10/#11, #15 "
+              f"and #14 launched on the inducing-sharded path (none of "
+              f"{missing})")
+    nz = {f"{n} {w}": upper_nonzero_global(t, index)
+          for n, p, m, v in zip(opt.names, opt.params, opt.m, opt.v)
+          if n.endswith("q_sqrt.raw") for w, t in (("p", p), ("m", m),
+                                                   ("v", v))}
+    check(set(nz.values()) == {0}, f"(b) q_sqrt and its Adam moments "
+          f"exactly 0 above the global diagonal: {nz}")
+    step_ms = median_after_first(times)
+    log(f"(d) inducing-sharded step ms (median of steps 2-{steps}) "
+        f"{step_ms:.3f} {[round(t, 3) for t in times]} against the "
+        f"single-device step's {replicated['single_step_ms']:.3f} in (a) "
+        f"({step_ms / replicated['single_step_ms']:.2f}x); peak device "
+        f"memory {peak:.2f} GiB")
+    out = {"step_ms": step_ms, "step_ms_all": times, "peak_gib": peak,
+           "launches": counts}
+    if on_card:
+        _, rows = profile_kernels(lambda: step(sharded, gen, Xl, Yl),
+                                  "inducing-sharded step", PARALLEL_FAMILIES)
+        solvers = [k for _, _, k in rows
+                   if any(s in k.lower() for s in LIBRARY_SOLVERS)]
+        check(not solvers, f"(b) no cuSOLVER or library triangular solve "
+              f"in the profiled inducing-sharded step ({solvers[:3]})")
+        out["kernel_ms"] = sum(r[0] for r in rows)
+    return out
+
+
+def sharded_loss_and_grads(pt, par, mesh, arrays, X, Y, z, g, dev, tau):
+    """The inducing-sharded loss and every raw leaf's gradient (summed over
+    the axis), the model's layers replicated and sliced by the path."""
+    import torch.distributed as dist
+
+    from modulatedgps_tpu_torch.parallel.collectives import share
+    from modulatedgps_tpu_torch.parallel.mesh import axis_group
+    group = axis_group(mesh, "data")[0]
+    model = build_model(pt, arrays, dev, torch.float32, jitter=JITTER,
+                        temperature=tau)
+    to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    Xl, Yl = par.shard_batch(mesh, to(X), to(Y))
+    loss = -par.inducing_sharded_elbo_from_noise(model, Xl, Yl, to(z), to(g),
+                                                 mesh)
+    share(loss, group).backward()
+    out = {}
+    for name, p in model.named_parameters():
+        dist.all_reduce(p.grad, group=group)
+        out[name] = p.grad.double().cpu()
+    out["loss"] = loss.detach().double().cpu()
+    return out
+
+
+def parallel_inducing_reference(pt, par, mesh, dev, inputs, cpu_runs,
+                                cpu_sharded):
+    """(c) the card's f32 inducing-sharded loss, gradients (temperatures
+    1e-2 and 1) and predict_f on ``inputs`` (grad_inputs at M_REF) against
+    the port's f64 single-device CPU path (phase 6's runs when given: the
+    same state, batch and noise), with the f32 CPU path and the same
+    sharded program in f32 on the CPU (``cpu_sharded``) beside; the
+    assignment kernel's two scalars at tau 1e-2 within INDUCING_COLD_FACTOR
+    x the latter's distance."""
+    arrays, X, Y, z, g = inputs
+    M, batch = arrays["pred_layer.Z.raw"].shape[0], X.shape[0]
+    log(f"(c) inducing-sharded {dev} f32 vs CPU f64 (the f32 CPU path and "
+        f"the f32 CPU sharded path beside), M={M} batch={batch}")
+    beside = (("cpu f32", "f32 CPU"), ("cpu f32 sharded", "f32 CPU sharded"))
+    for tau in GRAD_TEMPERATURES:
+        runs = dict(cpu_runs[tau]) if cpu_runs else {
+            label: loss_and_grads(pt, arrays, X, Y, z, g, "cpu", t, tau)
+            for label, t in (("cpu f32", torch.float32),
+                             ("f64", torch.float64))}
+        runs["cpu f32 sharded"] = cpu_sharded[tau]
+        runs[dev] = sharded_loss_and_grads(pt, par, mesh, arrays, X, Y, z, g,
+                                           dev, tau)
+        log(f"  temperature {tau:g}: loss {float(runs[dev]['loss']):.8f} "
+            f"(f64 {float(runs['f64']['loss']):.8f})")
+        cold = dict(GRAD_TOL_COLD, **{
+            name: INDUCING_COLD_FACTOR * rel_dist(runs, "cpu f32 sharded",
+                                                  name) + 1e-6
+            for name in INDUCING_COLD_SCALARS})
+        compare_grads("(c) ", runs, dev, GRAD_TOL, cold, tau, beside)
+    outs = {}
+    for label, (d, t) in {dev: (dev, torch.float32),
+                          "cpu f32": ("cpu", torch.float32),
+                          "f64": ("cpu", torch.float64)}.items():
+        m = build_model(pt, arrays, d, t, jitter=JITTER)
+        Xt = torch.as_tensor(X, dtype=t, device=d)
+        with torch.no_grad():
+            if label == dev:
+                Xl = par.shard_batch(mesh, Xt)
+                outs[label] = [par.inducing_sharded_predict_f(layer, Xl, mesh)
+                               for layer in (m.pred_layer, m.assign_layer)]
+            else:
+                outs[label] = [layer.predict_f(Xt)
+                               for layer in (m.pred_layer, m.assign_layer)]
+    for i, layer in enumerate(("pred_layer", "assign_layer")):
+        for j, (what, key) in enumerate((("mean", "predict_y.mean"),
+                                         ("var", "predict_y.var"))):
+            rtol, atol_frac = REF_TOL[key]
+            want = outs["f64"][i][j].double()
+            atol = atol_frac * float(want.abs().max())
+            err, bad = allclose_report(outs[dev][i][j].double().cpu(), want,
+                                       rtol, atol)
+            cpu_err, _ = allclose_report(outs["cpu f32"][i][j].double(), want,
+                                         rtol, atol)
+            check(bad == 0, f"(c) inducing_sharded_predict_f {layer} {what}: "
+                  f"max_abs_err {err:.3e} (f32 CPU {cpu_err:.3e}; rtol "
+                  f"{rtol:g}, atol {atol:.2e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4401,7 +4799,7 @@ def main() -> int:
     counts = phase_train(pt)
     counts.update(phase_svgp_regression(pt))
     counts["qsqrt_sq_colsum"] = served["qsqrt_sq_colsum"]
-    phase_grad_reference(pt)
+    cpu_runs = phase_grad_reference(pt)
     counts["tril_fwd_f32"] = phase_sampling(pt)["tril_fwd_f32"]
     phase_sampling_reference(pt)
     phase_resume(pt)
@@ -4415,6 +4813,7 @@ def main() -> int:
     phase_vgp(pt)
     phase_vgp_reference(pt)
     phase_demos(pt)
+    phase_parallel(pt, cpu_runs=cpu_runs)
     log(f"cholesky_factor launches: {counts['cholesky_factor']} in "
         f"{TRAIN_STEPS} steps at M={M_FULL} (#16's shape), "
         f"{ref_counts['cholesky_factor']} in phase 4 at M={M_REF} (#15's)")

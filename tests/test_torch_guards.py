@@ -99,6 +99,54 @@ def test_demo_layer_imports_nothing_of_the_jax_side():
         "jax", "modulatedgps_tpu", "demos", "benchmarks")}, imported
 
 
+PARALLEL = ["modulatedgps_tpu_torch.parallel." + n for n in (
+    "collectives", "multihost", "mesh", "sharded", "blocked", "inducing")]
+PHASE_20 = ("phase_parallel", "one_rank_group", "grad_inputs",
+            "parallel_batch", "parallel_replicated", "parallel_inducing",
+            "sharded_loss_and_grads", "parallel_inducing_reference",
+            "upper_nonzero_global")
+
+
+def test_parallel_imports_nothing_of_the_jax_side():
+    """parallel/ imports neither jax nor the JAX package (it has its own
+    collectives instead of jax.lax's), and phase 20 of chip_smoke.py
+    imports neither inside its functions."""
+    import ast
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = f"NAMES = {PARALLEL!r}" + _IMPORT_NO_JAX_SIDE
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert set(PHASE_20) <= set(funcs)
+    for name in PHASE_20:
+        mods = {a.name for n in ast.walk(funcs[name])
+                if isinstance(n, ast.Import) for a in n.names}
+        mods |= {n.module for n in ast.walk(funcs[name])
+                 if isinstance(n, ast.ImportFrom) and n.module}
+        assert all(m.split(".")[0] in ("torch", "modulatedgps_tpu_torch")
+                   for m in mods), (name, mods)
+
+
+def test_parallel_cuda_entry_points_raise_without_a_card():
+    """make_mesh, global_mesh and initialize_multihost take device='cuda'
+    by default; without a card each raises instead of falling back to
+    gloo or to the CPU, and leaves no process group behind."""
+    import torch.distributed as dist
+
+    from modulatedgps_tpu_torch import parallel
+    calls = (lambda: parallel.make_mesh(), lambda: parallel.global_mesh(),
+             lambda: parallel.initialize_multihost(force=True),
+             lambda: parallel.initialize_multihost("localhost:1", 1, 0))
+    for call in calls:
+        if torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="card"):
+            call()
+        assert not dist.is_initialized()
+
+
 def test_cpu_tensors_launch_nothing():
     pt.reset_launch_counts()
     X = torch.randn(20, 3)
