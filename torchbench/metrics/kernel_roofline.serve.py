@@ -1,0 +1,4 @@
+"""kernel_roofline.serve: each traced request's least time, max(FLOPs / peak,
+bytes / peak bandwidth), over the device's busy time in the traced
+sub-window, in %."""
+from torchbench.harness.peaks import roofline_share as read  # noqa: F401
