@@ -13,14 +13,17 @@ stream is BIT-IDENTICAL to the pure-numpy path and goldens/demos are
 unaffected.  ``use_native=True`` additionally moves the per-epoch shuffle
 to the C++ PRNG (a different but deterministic stream).
 
-A copy of modulatedgps_tpu/data/loader.py; the batches are numpy arrays on
-the host, moved to the card by the caller.
+A copy of modulatedgps_tpu/data/loader.py, with the span
+``mgp.data.gather`` around each batch's row gathers; the batches are numpy
+arrays on the host, moved to the card by the caller.
 """
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+from ..utils.profiling import span
 
 __all__ = ["minibatch_iterator"]
 
@@ -72,4 +75,6 @@ def minibatch_iterator(X: np.ndarray, Y: np.ndarray, batch_size: int,
             idx = perm[start:start + batch_size]
             if drop_remainder and len(idx) < batch_size:
                 break
-            yield gather(X, idx), gather(Y, idx)
+            with span("mgp.data.gather"):
+                batch = gather(X, idx), gather(Y, idx)
+            yield batch

@@ -34,6 +34,7 @@ from ..ops.conditionals import expand_independent_outputs
 from ..ops.kernels import Kernel
 from ..ops.linalg import cholesky_with_inv, triangular_inverse
 from ..ops.quad_kernel import qsqrt_sq_colsum
+from ..utils.profiling import span
 
 __all__ = ["PrecomputedPosterior", "precompute_posterior", "precompute_smgp"]
 
@@ -71,23 +72,26 @@ class PrecomputedPosterior(nn.Module):
             raise NotImplementedError(
                 "PrecomputedPosterior serves marginal (diag) variances; "
                 "use SVGP.predict_f(full_cov=True)")
-        lead = Xnew.shape[:-2]
-        Xnew = Xnew.reshape(-1, Xnew.shape[-1])
-        Kzx = self.kernel.K(self.Z, Xnew)                      # [M, N]
-        Kdiag = self.kernel.K_diag(Xnew)                       # [N]
-        fmean = Kzx.T @ self.alpha                             # [N, K]
-        if self.mean_function is not None:
-            fmean = fmean + self.mean_function(Xnew)
-        A = self.Linv @ Kzx                                    # [M, N]
-        if self.S16 is not None:
-            quad = qsqrt_sq_colsum(self.S16, A)                # [K, N]
-        else:
-            quad = (self.S.transpose(-1, -2) @ A).square().sum(-2)
-        fvar = ((Kdiag - A.square().sum(0))[None, :] + quad).clamp_min(1e-12).T
-        if lead:
-            fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
-            fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
-        return fmean, expand_independent_outputs(fvar, False, full_output_cov)
+        with span("mgp.posterior.predict_f", Xnew):
+            lead = Xnew.shape[:-2]
+            Xnew = Xnew.reshape(-1, Xnew.shape[-1])
+            Kzx = self.kernel.K(self.Z, Xnew)                  # [M, N]
+            Kdiag = self.kernel.K_diag(Xnew)                   # [N]
+            fmean = Kzx.T @ self.alpha                         # [N, K]
+            if self.mean_function is not None:
+                fmean = fmean + self.mean_function(Xnew)
+            A = self.Linv @ Kzx                                # [M, N]
+            if self.S16 is not None:
+                quad = qsqrt_sq_colsum(self.S16, A)            # [K, N]
+            else:
+                quad = (self.S.transpose(-1, -2) @ A).square().sum(-2)
+            fvar = ((Kdiag - A.square().sum(0))[None, :]
+                    + quad).clamp_min(1e-12).T
+            if lead:
+                fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
+                fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
+            return fmean, expand_independent_outputs(fvar, False,
+                                                     full_output_cov)
 
 
 def precompute_posterior(svgp) -> PrecomputedPosterior:

@@ -40,6 +40,7 @@ from torch import nn
 
 from ..likelihoods.base import Likelihood
 from ..ops.sampling import gumbel, reparameterize
+from ..utils.profiling import span
 from ..utils.shapes import ShapeChecker
 from .svgp import SVGP
 
@@ -74,9 +75,10 @@ class SGP(nn.Module):
     def predict_y(self, Xnew, S: int = 1):
         """Per-expert predictive moments, tiled to [S, N, K] (rows are
         identical across S)."""
-        Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
-        mean, var = self.likelihood.predict_mean_and_var(Fmu, Fvar)
-        return mean.expand(S, *mean.shape), var.expand(S, *var.shape)
+        with span("mgp.predict_y", Xnew, "predict"):
+            Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
+            mean, var = self.likelihood.predict_mean_and_var(Fmu, Fvar)
+            return mean.expand(S, *mean.shape), var.expand(S, *var.shape)
 
 
 class SMGP(SGP):
@@ -159,15 +161,18 @@ class SMGP(SGP):
     # -- prediction --------------------------------------------------------
     def predict_assign(self, Xnew):
         """softmax of the mean assignment logits: [N, K]."""
-        amu, _ = self._marginals(self.assign_layer, Xnew)
-        return torch.softmax(amu, dim=-1)
+        with span("mgp.predict_assign", Xnew, "predict"):
+            amu, _ = self._marginals(self.assign_layer, Xnew)
+            return torch.softmax(amu, dim=-1)
 
     def predict_density(self, Xnew, Ynew):
         """Mixture predictive log-density log sum_k pi_k(x) p_k(y|x): [N]."""
-        pi = self.predict_assign(Xnew)                           # [N, K]
-        Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
-        log_pk = self.likelihood.predict_density_per_expert(Fmu, Fvar, Ynew)
-        return torch.logsumexp(torch.log(pi + 1e-12) + log_pk, dim=-1)
+        with span("mgp.predict_density", Xnew, "predict"):
+            pi = self.predict_assign(Xnew)                       # [N, K]
+            Fmu, Fvar = self._marginals(self.pred_layer, Xnew)
+            log_pk = self.likelihood.predict_density_per_expert(Fmu, Fvar,
+                                                                Ynew)
+            return torch.logsumexp(torch.log(pi + 1e-12) + log_pk, dim=-1)
 
     def predict_samples(self, generator: torch.Generator, Xnew, S: int = 1):
         """Mixture draws (samples_y, samples_f), each [S, N, 1]

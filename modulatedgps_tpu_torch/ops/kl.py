@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .kl_kernel import kl_bwd_scale, kl_sq_logdiag
 from .linalg import cholesky_with_inv, solve_lower
 
@@ -54,18 +55,20 @@ class _WhitenedTrilKL(torch.autograd.Function):
     def forward(ctx, q_mu, Lq, routed):
         ctx.routed = routed
         ctx.save_for_backward(q_mu, Lq)
-        return _tril_value(q_mu, Lq, routed)
+        with span("mgp.kl.fwd", Lq, "op"):
+            return _tril_value(q_mu, Lq, routed)
 
     @staticmethod
     def backward(ctx, g):
         q_mu, Lq = ctx.saved_tensors
-        if ctx.routed:
-            dLq = kl_bwd_scale(Lq, g.reshape(()).contiguous())
-        else:
-            dLq = g * Lq
-            dLq.diagonal(dim1=-2, dim2=-1).sub_(
-                g / torch.diagonal(Lq, dim1=-2, dim2=-1))
-        return g * q_mu, dLq, None
+        with span("mgp.kl.bwd", g, "op"):
+            if ctx.routed:
+                dLq = kl_bwd_scale(Lq, g.reshape(()).contiguous())
+            else:
+                dLq = g * Lq
+                dLq.diagonal(dim1=-2, dim2=-1).sub_(
+                    g / torch.diagonal(Lq, dim1=-2, dim2=-1))
+            return g * q_mu, dLq, None
 
 
 def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,

@@ -29,6 +29,7 @@ import math
 import torch
 
 from .. import _native
+from ..utils.profiling import span
 
 __all__ = ["kxz", "kxz_launch", "kxz_plain", "kxz_vjp", "kxz_vjp_plain",
            "vjp_workspace", "check_launch_args", "KINDS", "NEEDS"]
@@ -138,13 +139,15 @@ class _Kxz(torch.autograd.Function):
     def forward(ctx, X, X2, lengthscales, variance, kind):
         ctx.save_for_backward(X, X2, lengthscales, variance)
         ctx.kind = kind
-        return kxz_launch(X, X2, lengthscales, variance, kind=kind)
+        with span("mgp.kxz.fwd", X, "op"):
+            return kxz_launch(X, X2, lengthscales, variance, kind=kind)
 
     @staticmethod
     def backward(ctx, Kbar):
         need = ctx.needs_input_grad[:4]
-        grads = kxz_vjp(*ctx.saved_tensors, Kbar.contiguous(), kind=ctx.kind,
-                        needs=need)
+        with span("mgp.kxz.bwd", Kbar, "op"):
+            grads = kxz_vjp(*ctx.saved_tensors, Kbar.contiguous(),
+                            kind=ctx.kind, needs=need)
         return (*grads, None)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .chol_kernel import cholesky_factor
 from .trimm_kernel import chol_pullback_structured
 from .trsm_kernel import trsm_lower, trsm_lower_t
@@ -52,7 +53,8 @@ class _Cholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, K):
-        L, Inv = cholesky_factor(K.contiguous())
+        with span("mgp.cholesky.fwd", K, "op"):
+            L, Inv = cholesky_factor(K.contiguous())
         ctx.mark_non_differentiable(Inv)
         ctx.save_for_backward(L, Inv)
         return L, Inv
@@ -60,8 +62,9 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, Lbar, _):
         L, Inv = ctx.saved_tensors
-        return chol_pullback_structured(L, triangular_inverse(L, Inv),
-                                        Lbar.contiguous())
+        with span("mgp.cholesky.bwd", Lbar, "op"):
+            return chol_pullback_structured(L, triangular_inverse(L, Inv),
+                                            Lbar.contiguous())
 
 
 def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
@@ -115,9 +118,10 @@ class _SolveLower(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, L, B, trans, inv, tril_rhs):
-        B = B.contiguous()
-        X = (trsm_lower_t(L, B, inv=inv) if trans
-             else trsm_lower(L, B, inv=inv, tril_rhs=tril_rhs))
+        with span("mgp.solve_lower.fwd", B, "op"):
+            B = B.contiguous()
+            X = (trsm_lower_t(L, B, inv=inv) if trans
+                 else trsm_lower(L, B, inv=inv, tril_rhs=tril_rhs))
         ctx.trans = trans
         ctx.save_for_backward(L, X, inv)
         return X
@@ -125,12 +129,14 @@ class _SolveLower(torch.autograd.Function):
     @staticmethod
     def backward(ctx, Xbar):
         L, X, inv = ctx.saved_tensors
-        Xbar = Xbar.contiguous()
-        Bbar = (trsm_lower if ctx.trans else trsm_lower_t)(L, Xbar, inv=inv)
-        Lbar = None
-        if ctx.needs_input_grad[0]:
-            G = X @ Bbar.T if ctx.trans else Bbar @ X.T
-            Lbar = torch.tril(G).neg_()
+        with span("mgp.solve_lower.bwd", Xbar, "op"):
+            Xbar = Xbar.contiguous()
+            Bbar = (trsm_lower if ctx.trans else trsm_lower_t)(L, Xbar,
+                                                                inv=inv)
+            Lbar = None
+            if ctx.needs_input_grad[0]:
+                G = X @ Bbar.T if ctx.trans else Bbar @ X.T
+                Lbar = torch.tril(G).neg_()
         return Lbar, Bbar if ctx.needs_input_grad[1] else None, None, None, None
 
 
@@ -152,18 +158,20 @@ class _WhitenSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Kmm, Kmn):
-        L, Inv = cholesky_with_inv(Kmm)
-        Linv = triangular_inverse(L, Inv)
-        A = Linv @ Kmn
+        with span("mgp.whiten_solve.fwd", Kmm, "op"):
+            L, Inv = cholesky_with_inv(Kmm)
+            Linv = triangular_inverse(L, Inv)
+            A = Linv @ Kmn
         ctx.save_for_backward(L, Linv, A)
         return A
 
     @staticmethod
     def backward(ctx, Abar):
         L, Linv, A = ctx.saved_tensors
-        Kmn_bar = Linv.T @ Abar
-        Kmm_bar = None
-        if ctx.needs_input_grad[0]:
-            Lbar = torch.tril(Kmn_bar @ A.T).neg_()
-            Kmm_bar = chol_pullback_structured(L, Linv, Lbar)
+        with span("mgp.whiten_solve.bwd", Abar, "op"):
+            Kmn_bar = Linv.T @ Abar
+            Kmm_bar = None
+            if ctx.needs_input_grad[0]:
+                Lbar = torch.tril(Kmn_bar @ A.T).neg_()
+                Kmm_bar = chol_pullback_structured(L, Linv, Lbar)
         return Kmm_bar, Kmn_bar

@@ -51,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from .. import _native
+from ..utils.profiling import span
 
 TILE_P = 256   # m' columns of the product's output tile: part's middle axis
 
@@ -360,32 +361,35 @@ class _AtlSqColsum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, L, split):
         ctx.split = split
-        if not split:
-            A16 = A.to(torch.bfloat16).contiguous()
-            L16 = L.to(torch.bfloat16).contiguous()
-            B16 = tril_sq_fwd(A16, L16)
-            ctx.save_for_backward(A16, L16, B16)
-            return B16.float().square().sum(-1)
-        K = L.shape[0]
-        A2, L3 = _split_operands(A, L)
-        B, extra = tril_sq_fwd_split(A2, L3[:2 * K])
+        with span("mgp.atl_sq_colsum.fwd", A, "op"):
+            if not split:
+                A16 = A.to(torch.bfloat16).contiguous()
+                L16 = L.to(torch.bfloat16).contiguous()
+                B16 = tril_sq_fwd(A16, L16)
+                ctx.save_for_backward(A16, L16, B16)
+                return B16.float().square().sum(-1)
+            K = L.shape[0]
+            A2, L3 = _split_operands(A, L)
+            B, extra = tril_sq_fwd_split(A2, L3[:2 * K])
         ctx.save_for_backward(A2[0], L3, B)
         return extra
 
     @staticmethod
     def backward(ctx, gbar):
         A16, L16, B = ctx.saved_tensors
-        G = (2.0 * gbar).float().contiguous()
-        if not ctx.split:
-            dA = tril_sq_da(L16, B, G) if ctx.needs_input_grad[0] else None
-            dL = tril_sq_dl(A16, B, G) if ctx.needs_input_grad[1] else None
-            return dA, dL, None
-        K, N, M = B.shape
-        W3 = torch.empty((3 * K, N, M), dtype=torch.bfloat16, device=B.device)
-        split_bf16(B * G[:, :, None], W3[K:].view(2, K, N, M))
-        W3[:K].copy_(W3[K:2 * K])
-        dA = tril_da(L16, W3) if ctx.needs_input_grad[0] else None
-        dL = tril_dl(A16, W3[:K]) if ctx.needs_input_grad[1] else None
+        with span("mgp.atl_sq_colsum.bwd", gbar, "op"):
+            G = (2.0 * gbar).float().contiguous()
+            if not ctx.split:
+                dA = tril_sq_da(L16, B, G) if ctx.needs_input_grad[0] else None
+                dL = tril_sq_dl(A16, B, G) if ctx.needs_input_grad[1] else None
+                return dA, dL, None
+            K, N, M = B.shape
+            W3 = torch.empty((3 * K, N, M), dtype=torch.bfloat16,
+                             device=B.device)
+            split_bf16(B * G[:, :, None], W3[K:].view(2, K, N, M))
+            W3[:K].copy_(W3[K:2 * K])
+            dA = tril_da(L16, W3) if ctx.needs_input_grad[0] else None
+            dL = tril_dl(A16, W3[:K]) if ctx.needs_input_grad[1] else None
         return dA, dL, None
 
 
@@ -404,17 +408,19 @@ class _AtlMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A, L):
-        A16 = A.to(torch.bfloat16).contiguous()
-        L16 = L.to(torch.bfloat16).contiguous()
-        ctx.save_for_backward(A16, L16)
-        return tril_fwd_f32(A16, L16)
+        with span("mgp.atl_matmul.fwd", A, "op"):
+            A16 = A.to(torch.bfloat16).contiguous()
+            L16 = L.to(torch.bfloat16).contiguous()
+            ctx.save_for_backward(A16, L16)
+            return tril_fwd_f32(A16, L16)
 
     @staticmethod
     def backward(ctx, Bbar):
         A16, L16 = ctx.saved_tensors
-        W16 = Bbar.to(torch.bfloat16).contiguous()
-        dA = tril_da(L16, W16) if ctx.needs_input_grad[0] else None
-        dL = tril_dl(A16, W16) if ctx.needs_input_grad[1] else None
+        with span("mgp.atl_matmul.bwd", Bbar, "op"):
+            W16 = Bbar.to(torch.bfloat16).contiguous()
+            dA = tril_da(L16, W16) if ctx.needs_input_grad[0] else None
+            dL = tril_dl(A16, W16) if ctx.needs_input_grad[1] else None
         return dA, dL
 
 

@@ -18,6 +18,7 @@ from typing import Callable, Iterator, NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from .adam import Adam
 from .checkpoint import restore_checkpoint, save_checkpoint
 
@@ -50,10 +51,14 @@ def make_train_step(optimizer: Adam, loss_fn: Callable | None = None):
     loss = loss_fn or default_loss
 
     def step(model, generator, X, Y):
-        optimizer.zero_grad()
-        value = loss(model, generator, X, Y)
-        value.backward()
-        optimizer.step()
+        with span("mgp.step", X):
+            optimizer.zero_grad()
+            with span("mgp.loss", X):
+                value = loss(model, generator, X, Y)
+            with span("mgp.backward", X):
+                value.backward()
+            with span("mgp.adam", X):
+                optimizer.step()
         return value.detach()
 
     return step

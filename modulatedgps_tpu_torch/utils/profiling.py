@@ -1,12 +1,22 @@
-"""Tracing, timing and operation counts.
+"""Tracing, spans, timing and operation counts.
 
 The counterpart of modulatedgps_tpu/utils/profiling.py on torch.profiler:
 
     with trace("/tmp/mgp_trace"):        # a Chrome / Perfetto trace file
         step(model, gen, X, Y)
+    table = span_table()                  # {span: calls, host ms, device ms}
 
-    t = time_fn(step, model, gen, X, Y)   # best wall seconds per call
     flops = flops_estimate(step, model, gen, X, Y)
+
+``span(name)`` marks a part of the program: the train step and its loss,
+backward and Adam update, the batch gather, each custom autograd
+Function's forward and backward, the served predictions and the cached
+posterior's marginals.  While no torch profiler records it costs one call
+and one global read.  While one records, each span is a
+``record_function`` range on the trace's clock (named ``mgp.*``, so a
+trace reader tells it from aten ops), timed by the host clock and, on the
+card, by CUDA events on the current stream; ``span_table()`` sums them by
+name, ``reset_spans()`` clears them.
 
 ``kernel_times`` profiles one call and returns the device time of each
 kernel, from kernel-level events only: an autograd Function's range in
@@ -18,12 +28,14 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "time_fn", "flops_estimate", "intercepting",
-           "kernel_times", "STAND_IN_KERNEL"]
+__all__ = ["trace", "span", "span_table", "reset_spans", "flops_estimate",
+           "intercepting", "kernel_times", "SPAN_PREFIX", "STAND_IN_KERNEL"]
 
 # kernel_times' stand-ins: the kernel torch.cuda._sleep launches, how many
 # open each of its steps, and the host seconds from them to what follows.
@@ -59,19 +71,99 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Best wall seconds of ``fn(*args)`` over ``iters`` calls after
-    ``warmup``; on the card each call ends in ``torch.cuda.synchronize()``."""
-    for _ in range(warmup):
-        fn(*args)
-        _sync()
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        _sync()
-        best = min(best, time.perf_counter() - t0)
-    return best
+# Every span's name starts with this.
+SPAN_PREFIX = "mgp."
+# What span() returns while no profiler records: one object, shared.
+_OFF = contextlib.nullcontext()
+# {name: [(host seconds, outermost of its kind, start event, end event)]};
+# the events are None off the card.
+_SPANS: dict[str, list] = {}
+# Per thread: {kind: how many spans of that kind are open}.
+_DEPTH = threading.local()
+
+
+def span(name: str, tensor: torch.Tensor | None = None,
+         kind: str | None = None):
+    """A context manager over a part of the program named ``name``
+    (``mgp.*``).
+
+    While no torch profiler records it is one shared ``nullcontext``.
+    While one records, the block is a ``record_function(name)`` range,
+    timed by ``time.perf_counter`` and, where ``tensor`` is on the card,
+    by two CUDA events on that device's current stream (in a backward,
+    the autograd engine's).  A span opened inside another open span of the
+    same ``kind`` (default: its name) on the same thread is not outermost:
+    ``span_table``'s ``outer_*`` sums leave it out."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, kind or name, tensor)
+
+
+def _event(stream):
+    if stream is None:
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return event
+
+
+class _Span:
+    __slots__ = ("name", "kind", "stream", "range", "outer", "t0", "e0")
+
+    def __init__(self, name, kind, tensor):
+        self.name, self.kind = name, kind
+        self.stream = (torch.cuda.current_stream(tensor.device)
+                       if tensor is not None and tensor.is_cuda else None)
+
+    def __enter__(self):
+        depth = _DEPTH.__dict__
+        open_ = depth.get(self.kind, 0)
+        depth[self.kind] = open_ + 1
+        self.outer = open_ == 0
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.e0 = _event(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_s = time.perf_counter() - self.t0
+        e1 = _event(self.stream)
+        self.range.__exit__(*exc)
+        _DEPTH.__dict__[self.kind] -= 1
+        _SPANS.setdefault(self.name, []).append(
+            (host_s, self.outer, self.e0, e1))
+        return False
+
+
+def span_table() -> dict:
+    """{name: {"calls", "host_ms", "device_ms", "outer_calls",
+    "outer_host_ms", "outer_device_ms"}} of every span recorded since the
+    last ``reset_spans``; synchronizes the card first.  The device ms are
+    CUDA-event times, None for a span that never ran on the card."""
+    rows = {name: list(calls) for name, calls in list(_SPANS.items())}
+    if any(e0 is not None for calls in rows.values() for _, _, e0, _ in calls):
+        torch.cuda.synchronize()
+    table = {}
+    for name, calls in rows.items():
+        device = [(outer, e0.elapsed_time(e1))
+                  for _, outer, e0, e1 in calls if e0 is not None]
+        on_card = bool(device)
+        table[name] = {
+            "calls": len(calls),
+            "host_ms": 1e3 * sum(h for h, _, _, _ in calls),
+            "device_ms": sum(ms for _, ms in device) if on_card else None,
+            "outer_calls": sum(1 for _, outer, _, _ in calls if outer),
+            "outer_host_ms": 1e3 * sum(h for h, outer, _, _ in calls if outer),
+            "outer_device_ms": (sum(ms for outer, ms in device if outer)
+                                if on_card else None),
+        }
+    return table
+
+
+def reset_spans() -> None:
+    """Forget every span recorded so far."""
+    _SPANS.clear()
 
 
 class _StandIn:
@@ -147,7 +239,8 @@ def kernel_times(fn):
     """torch.profiler over one ``fn()`` on the card: ([(self device ms,
     calls, kernel name)] largest first, the events grouped by input shape).
 
-    Only kernel-level events are kept.  A profile can lose the launches of
+    Only kernel-level events are kept (not the device-side ranges of
+    ProfilerStep or of the spans).  A profile can lose the launches of
     its first milliseconds (a train step's noise draw, K(X, Z) forwards and
     Cholesky; a VGP evaluation's K(X, X) and Cholesky), and a pause alone
     does not keep them: so STAND_INS sleep kernels run in the schedule's
@@ -183,5 +276,6 @@ def kernel_times(fn):
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0
                    and STAND_IN_KERNEL not in ev.key
-                   and not ev.key.startswith("ProfilerStep")), reverse=True)
+                   and not ev.key.startswith(("ProfilerStep", SPAN_PREFIX))),
+                  reverse=True)
     return rows, events["by_shape"]

@@ -1,10 +1,10 @@
 """utils/profiling and utils/plotting of the port, on the CPU.
 
-time_fn gives a positive time, trace writes a trace file, flops_estimate
-counts a matmul as 2·M·N·K and a kernel wrapper once (its plain version's
-aten ops hidden): at the CostEstimate the JAX package hands pl.pallas_call
-for the same operands, captured here, or where JAX takes no Pallas call at
-XLA's cost analysis of the dense contraction it runs instead.  The
+trace writes a trace file, flops_estimate counts a matmul as 2·M·N·K and
+a kernel wrapper once (its plain version's aten ops hidden): at the
+CostEstimate the JAX package hands pl.pallas_call for the same operands,
+captured here, or where JAX takes no Pallas call at XLA's cost analysis of
+the dense contraction it runs instead.  The
 figure builders, given the same numpy inputs as the JAX package's, draw
 the same lines and scatters; the SVGP helpers draw the same prediction
 bands from the same state.
@@ -49,11 +49,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def test_time_fn_is_positive():
-    a = torch.randn(64, 64)
-    assert profiling.time_fn(torch.matmul, a, a, iters=3, warmup=1) > 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
