@@ -50,6 +50,9 @@ Phases, each printing its own lines:
      predict_y / predict_assign / predict_density and 2 through the
      training-path predict_y, with each serving kernel's launch count > 0
      (the Cholesky and the fused q_sqrt quadratic #17 among them);
+     predict_assign (the assignment layer's mean alone) and
+     predict_density bit-equal to the composition on the full assignment
+     marginal, and the device ms of one predict_mean beside one predict_f;
   4. the same model at M=1024, batch 2048 on the card against the port's
      plain path in float64 on the CPU, the Cholesky and #17 launched;
   5. the train step at the north-star width (S=16, batch 8192, lr 5e-3,
@@ -1626,6 +1629,33 @@ def allocator_counts(on_card):
                                       "num_alloc_retries")]
 
 
+def mean_only_checks(served, X, Y, pi, dens, on_card):
+    """The served predict_assign (the assignment layer's predict_mean) bit
+    for bit the softmax of the full cached marginal's mean, and
+    predict_density bit for bit its own value with predict_assign served
+    so; on the card the device ms of one predict_mean beside one predict_f
+    of the assignment layer, by kernel."""
+    layer = served.assign_layer
+    pi_full = lambda X: torch.softmax(layer.predict_f(X)[0], dim=-1)
+    served.predict_assign = pi_full
+    try:
+        dens_full = served.predict_density(X, Y)
+    finally:
+        del served.predict_assign
+    check(same_bits(pi, pi_full(X)) and same_bits(dens, dens_full),
+          "predict_assign and predict_density bit-equal to the composition "
+          "on the full assignment marginal (softmax of predict_f's mean)")
+    if not on_card:
+        return
+    from modulatedgps_tpu_torch.utils.profiling import kernel_times
+    for what, fn in (("predict_mean", lambda: layer.predict_mean(X)),
+                     ("predict_f", lambda: layer.predict_f(X))):
+        rows, _ = kernel_times(fn)
+        log(f"assignment layer {what}, one call: "
+            f"{sum(ms for ms, _, _ in rows):.4f} device ms; by kernel "
+            f"{[(round(ms, 4), n, name[:60]) for ms, n, name in rows]}")
+
+
 def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH, n_batches=SERVED_BATCHES):
     log(f"== phase 3: serving slice M={M} K={K_EXPERTS} D={D_IN} "
         f"batch={batch} f32")
@@ -1694,6 +1724,7 @@ def phase_slice(pt, dev="cuda", M=M_FULL, batch=BATCH, n_batches=SERVED_BATCHES)
                   f"(rtol 2e-2: bf16 B)")
         counts = {name: n for name, n in pt.launch_counts().items()
                   if name in SERVING_KERNELS}
+        mean_only_checks(served, *batches[0], *served_out[0][2:], on_card)
     log(f"launches in the serving run: {counts}")
     for name, n in counts.items():
         check(n > 0, f"{name} launched {n} times on the main path")

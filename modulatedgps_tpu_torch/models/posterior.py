@@ -10,8 +10,9 @@ build, two matmuls and the q_sqrt term, with no Cholesky or solves:
 for a whitened layer, S = tril q_sqrt.  An unwhitened layer caches
 alpha = L^-T (L^-1 q_mu) = Kmm^-1 q_mu and S_k = L^-1 tril q_sqrt_k (the
 JAX package's ``LS``, a plain matmul of two lower-triangular factors) and
-serves the same formula.  The q_sqrt term of a float32 posterior is one
-launch of the fused kernel qsqrt_sq_colsum on the cached bf16 S and
+serves the same formula.  ``predict_mean`` serves fmean alone: the
+kernel build and one matmul.  The q_sqrt term of a float32 posterior is
+one launch of the fused kernel qsqrt_sq_colsum on the cached bf16 S and
 bf16(A), A = L^-1 K(Z, X) [M, N].
 
 The JAX package folds the variance into Q_k = L^-T (S_k S_k^T - I) L^-1
@@ -60,6 +61,26 @@ class PrecomputedPosterior(nn.Module):
         self.register_buffer("S", None if f32 else S)
         self.register_buffer("S16", S.to(torch.bfloat16) if f32 else None)
 
+    def _flat_mean(self, Xnew: torch.Tensor):
+        """What predict_f and predict_mean share: the leading dimensions
+        of Xnew, Xnew flattened to [N, D], Kzx = K(Z, Xnew) [M, N] and
+        fmean [N, K] (plus the mean function)."""
+        lead = Xnew.shape[:-2]
+        Xnew = Xnew.reshape(-1, Xnew.shape[-1])
+        Kzx = self.kernel.K(self.Z, Xnew)                      # [M, N]
+        fmean = Kzx.T @ self.alpha                             # [N, K]
+        if self.mean_function is not None:
+            fmean = fmean + self.mean_function(Xnew)
+        return lead, Xnew, Kzx, fmean
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """The marginal posterior mean at Xnew [..., N, D]: [..., N, K],
+        by the same calls on the same operands as predict_f's, so equal to
+        predict_f(Xnew)[0] bit for bit; no L^-1 product or q_sqrt term."""
+        with span("mgp.posterior.predict_mean", Xnew):
+            lead, _, _, fmean = self._flat_mean(Xnew)
+            return _unflatten(lead, fmean)
+
     def predict_f(self, Xnew: torch.Tensor, *, full_cov: bool = False,
                   full_output_cov: bool = False):
         """Marginal posterior mean and variance at Xnew [..., N, D]:
@@ -73,13 +94,8 @@ class PrecomputedPosterior(nn.Module):
                 "PrecomputedPosterior serves marginal (diag) variances; "
                 "use SVGP.predict_f(full_cov=True)")
         with span("mgp.posterior.predict_f", Xnew):
-            lead = Xnew.shape[:-2]
-            Xnew = Xnew.reshape(-1, Xnew.shape[-1])
-            Kzx = self.kernel.K(self.Z, Xnew)                  # [M, N]
+            lead, Xnew, Kzx, fmean = self._flat_mean(Xnew)
             Kdiag = self.kernel.K_diag(Xnew)                   # [N]
-            fmean = Kzx.T @ self.alpha                         # [N, K]
-            if self.mean_function is not None:
-                fmean = fmean + self.mean_function(Xnew)
             A = self.Linv @ Kzx                                # [M, N]
             if self.S16 is not None:
                 quad = qsqrt_sq_colsum(self.S16, A)            # [K, N]
@@ -87,11 +103,13 @@ class PrecomputedPosterior(nn.Module):
                 quad = (self.S.transpose(-1, -2) @ A).square().sum(-2)
             fvar = ((Kdiag - A.square().sum(0))[None, :]
                     + quad).clamp_min(1e-12).T
-            if lead:
-                fmean = fmean.reshape(*lead, -1, fmean.shape[-1])
-                fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
-            return fmean, expand_independent_outputs(fvar, False,
-                                                     full_output_cov)
+            return _unflatten(lead, fmean), expand_independent_outputs(
+                _unflatten(lead, fvar), False, full_output_cov)
+
+
+def _unflatten(lead, t: torch.Tensor) -> torch.Tensor:
+    """t [N, K] with the leading dimensions ``lead`` restored."""
+    return t.reshape(*lead, -1, t.shape[-1]) if lead else t
 
 
 def precompute_posterior(svgp) -> PrecomputedPosterior:

@@ -12,9 +12,9 @@ Gumbel-softmax to soft one-hot weights W [S, N, K].  The ELBO is
 
 with each layer's conditional computed once on [N, D] and only the S
 Gaussian and Gumbel draws per sample.  A layer is anything with
-``predict_f(X) -> ([N, K], [N, K])``: a trained ``SVGP`` (the training-path
-conditional) or, for prediction only, a ``PrecomputedPosterior`` (see
-posterior.precompute_smgp).
+``predict_f(X) -> ([N, K], [N, K])`` and ``predict_mean(X) -> [N, K]``:
+a trained ``SVGP`` (the training-path conditional) or, for prediction
+only, a ``PrecomputedPosterior`` (see posterior.precompute_smgp).
 
 At tau = 1e-2 W is one-hot to float32 rounding, and one bf16 pass in a
 layer's q_sqrt variance term (the TPU route's precision class) moves the
@@ -160,9 +160,10 @@ class SMGP(SGP):
 
     # -- prediction --------------------------------------------------------
     def predict_assign(self, Xnew):
-        """softmax of the mean assignment logits: [N, K]."""
+        """softmax of the mean assignment logits: [N, K].  Only the
+        assignment layer's mean is computed, not its variance."""
         with span("mgp.predict_assign", Xnew, "predict"):
-            amu, _ = self._marginals(self.assign_layer, Xnew)
+            amu = self.assign_layer.predict_mean(Xnew)
             return torch.softmax(amu, dim=-1)
 
     def predict_density(self, Xnew, Ynew):

@@ -2,11 +2,12 @@
 
 Mirrors modulatedgps_tpu/models/svgp.py: ``create``, ``num_inducing``,
 ``kuu``, ``predict_f`` (marginal or joint, over [..., N, D] inputs, plus
-the mean function if there is one), ``predict_f_samples`` and
-``prior_kl``.  Kmn is built as kernel.K(Z, Xnew) and Kmm = K(Z, Z) +
-jitter I.  State: Z [M, D], q_mu [M, K], q_sqrt tril [K, M, M] (init: K
-stacked identities) or diagonal [M, K]; with ``whiten`` (the default) q(u)
-is over the whitened u' = chol(Kmm)^-1 u, without it over u itself.
+the mean function if there is one), ``predict_mean``,
+``predict_f_samples`` and ``prior_kl``.  Kmn is built as kernel.K(Z,
+Xnew) and Kmm = K(Z, Z) + jitter I.  State: Z [M, D], q_mu [M, K],
+q_sqrt tril [K, M, M] (init: K stacked identities) or diagonal [M, K];
+with ``whiten`` (the default) q(u) is over the whitened u' =
+chol(Kmm)^-1 u, without it over u itself.
 ``create`` puts the state on the card unless given a device.
 """
 from __future__ import annotations
@@ -112,6 +113,11 @@ class SVGP(nn.Module):
             fvar = fvar.reshape(*lead, -1, fvar.shape[-1])
         return fmean, expand_independent_outputs(fvar, full_cov,
                                                  full_output_cov)
+
+    def predict_mean(self, Xnew: torch.Tensor) -> torch.Tensor:
+        """The marginal posterior mean at Xnew [..., N, D]: [..., N, K],
+        predict_f's (which does not depend on ``split``)."""
+        return self.predict_f(Xnew)[0]
 
     def predict_f_samples(self, generator: torch.Generator, Xnew: torch.Tensor,
                           num_samples: int = 1, *,

@@ -7,11 +7,13 @@ whitened SMGP through make_train_step records the step, its loss, backward
 and Adam update, and each layer's whitened solve and q_sqrt term forward
 and backward; the Cholesky inside the whitened solve counts as nested.  A
 served request (predict_y, predict_assign, predict_density of
-precompute_smgp's model) evaluates four cached marginals under three
-outermost predict spans.  The spans stand in the Chrome trace as user
-annotations, the loss inside the step.  Each of torchbench/metrics/'s span
-readers, loaded by path, reads its number from a filled table and reads
-nothing, raising nothing, from a program without spans.
+precompute_smgp's model) evaluates two cached marginals (predict_y's and
+predict_density's prediction layer) and two cached means (the assignment
+layer's, in each predict_assign) under three outermost predict spans.  The
+spans stand in the Chrome trace as user annotations, the loss inside the
+step.  Each of torchbench/metrics/'s span readers, loaded by path, reads
+its number from a filled table and reads nothing, raising nothing, from a
+program without spans.
 """
 import importlib.util
 import json
@@ -144,9 +146,10 @@ def test_cholesky_inside_the_whitened_solve_is_nested(step_record):
     assert all(name.startswith(profiling.SPAN_PREFIX) for name in table)
 
 
-def test_served_request_counts_four_marginals(request_table):
-    row = request_table["mgp.posterior.predict_f"]
-    assert row["calls"] == row["outer_calls"] == 4
+def test_served_request_counts_two_marginals_and_two_means(request_table):
+    for name in ("mgp.posterior.predict_f", "mgp.posterior.predict_mean"):
+        row = request_table[name]
+        assert row["calls"] == row["outer_calls"] == 2
 
 
 def test_served_request_has_three_outermost_predict_spans(request_table):
