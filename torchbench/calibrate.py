@@ -79,7 +79,7 @@ FAULTS = {"train": ("unchanged", "half_batch"), "serve": ("altered",)}
 
 def leaf_gaps(prog: dict, ref: dict, key: str, top: int = 3) -> list:
     """A train cell's largest per-leaf gaps of ``key`` (grad_norms or
-    change_norms), as check.train_numbers measures them: [[leaf, gap]]."""
+    change_norms), as harness/train.numbers measures them: [[leaf, gap]]."""
     want = ref[key]
     med = statistics.median(want.values())
     gaps = {k: abs(prog[key][k] - v) / max(v, med) for k, v in want.items()}
@@ -91,9 +91,8 @@ def calibrate(cell, seeds, device, seconds=0.0, control=False, faults=0,
     """One dict of readings per seed (also handed to ``out``); the faults
     are planted on the first ``faults`` seeds."""
     import torch
-    from torchbench.harness import runner
     kind = cell.traffic["kind"]
-    module, numbers_of = runner.KINDS[kind]
+    module = cell.kind()
     rows = []
     for seed in seeds:
         args = types.SimpleNamespace(workload=cell.name, seed=seed,
@@ -101,17 +100,18 @@ def calibrate(cell, seeds, device, seconds=0.0, control=False, faults=0,
         row = {"seed": seed}
         ctx = module.run(cell, args, device, time.perf_counter())
         ref = module.reference(cell, args, device, ctx)
-        row["program"] = numbers_of(ctx["check"]["program"], ref)
+        row["program"] = module.numbers(ctx["check"]["program"], ref)
         if kind == "train":
             row["leaves"] = {key: leaf_gaps(ctx["check"]["program"], ref, key)
                              for key in ("grad_norms", "change_norms")}
         if control:
             low = module.reference(cell, args, device, ctx, "control")
-            row["control"] = numbers_of(low, ref)
+            row["control"] = module.numbers(low, ref)
         for fault in (FAULTS[kind] if len(rows) < faults else ()):
             with planted(kind, fault):
                 bad = module.run(cell, args, device, time.perf_counter())
-            row[f"fault.{fault}"] = numbers_of(bad["check"]["program"], ref)
+            row[f"fault.{fault}"] = module.numbers(bad["check"]["program"],
+                                                   ref)
         del ctx, ref
         if device.type == "cuda":
             torch.cuda.empty_cache()

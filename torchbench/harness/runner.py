@@ -4,26 +4,24 @@ from __future__ import annotations
 
 import torch
 
-from . import check, serve, train
+from . import check, clock
 
 GIB = 2 ** 30
-KINDS = {"train": (train, check.train_numbers),
-         "serve": (serve, check.serve_numbers)}
 
 
-def run_cell(cell, args, device, t_start: float) -> tuple[dict, dict]:
-    """(result, check table).  The reference runs after the window has
-    closed, the peak memory has been read and the program's state freed."""
-    module, numbers_of = KINDS[cell.traffic["kind"]]
-    ctx = module.run(cell, args, device, t_start)
-    ref = module.reference(cell, args, device, ctx)
-    program = ctx["check"]["program"]
-    numbers = numbers_of(program, ref)
-    correct, table = check.judge(numbers, cell.limits)
-    if cell.traffic["kind"] == "serve":
-        ctx["failed"] = sum(1 for out in program
-                            if not all(bool(torch.isfinite(t).all())
-                                       for t in out.values()))
+def run_cell(cell, args, device, t_start: float) -> tuple[dict, list]:
+    """(result, report lines) of the cell's kind on ``device``.  The
+    reference runs after the window has closed, the peak memory has been
+    read and the program's state freed.  A kind whose ``numbers`` gives
+    nothing in this process (a rank that checks nothing) leaves ``checks``
+    empty.  The lines, for standard error: the kind's summary, set-up and
+    peak, and set-up by part since ``t_start``."""
+    kind = cell.kind()
+    ctx = kind.run(cell, args, device, t_start)
+    ref = kind.reference(cell, args, device, ctx)
+    numbers = kind.numbers(ctx["check"]["program"], ref)
+    correct, table = (check.judge(numbers, cell.limits) if numbers
+                      else (False, {}))
     metrics = {}
     for metric in (cell.per_layer if args.trace else cell.end_to_end):
         value = cell.reader(metric)(ctx)
@@ -42,4 +40,9 @@ def run_cell(cell, args, device, t_start: float) -> tuple[dict, dict]:
         result["breakdown"] = {"device_ops": trace.device_ops,
                                "idle_gaps": trace.idle_gaps}
     result["checks"] = table
-    return result, ctx
+    lines = [*kind.summary(ctx),
+             f"setup_s {ctx['setup_s']!r}, "
+             f"peak {ctx['peak_bytes'] / GIB!r} GiB",
+             "setup parts: " + ", ".join(f"{label} {s!r}" for label, s
+                                         in clock.parts(t_start))]
+    return result, lines

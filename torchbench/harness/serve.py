@@ -5,7 +5,16 @@ request has the mix's one size); each request
 is predict_y, predict_assign and predict_density of that served model under
 torch.inference_mode(), timed from its start to its outputs on the device
 (a synchronize).  The outputs of the requests the check samples are kept
-and compared with the reference once the window has closed.
+and compared with the reference once the window has closed; the window
+does not close before every sampled request has been served.
+
+The numbers that decide ``correct`` (the sampled requests' outputs, all
+points together):
+
+    mean_gap    = max |mu - mu*| / max |mu*|
+    var_gap     = max |v - v*| / v*
+    assign_gap  = max |pi - pi*|
+    density_gap = max |log p - log p*|
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ import time
 import torch
 
 from . import state as st
+from .check import finite
 from .clock import mark
 from .trace import Recorder
 from .traffic import request_pool
@@ -49,27 +59,21 @@ def run(cell, args, device, t_start: float) -> dict:
     if trace:
         mark("profiler")
     span = mix["trace"]
-    latencies, sizes, kept, events = [], [], {}, []
+    latencies, sizes, kept = [], [], {}
+    last_checked = max(pool.checked)
     setup_s = time.perf_counter() - t_start
     t0 = time.perf_counter()
     deadline = t0 + args.seconds
     per_second = [0] * (int(args.seconds) + 2)
     i = 0
-    while time.perf_counter() < deadline:
+    while time.perf_counter() < deadline or i <= last_checked:
         if trace and i == span["skip"]:
             recorder.start()
         if trace and i == span["skip"] + span["profiled"]:
             recorder.stop()
         X, Y = pool.request(i)
         a = time.perf_counter()
-        if trace:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e0.record()
         (mean, var), assign, density = serve(X, Y)
-        if trace:
-            e1 = torch.cuda.Event(enable_timing=True)
-            e1.record()
-            events.append((e0, e1))
         sync()
         done = time.perf_counter()
         latencies.append(done - a)
@@ -84,7 +88,7 @@ def run(cell, args, device, t_start: float) -> dict:
         recorder.stop()         # the window ended inside the profiled requests
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     ctx = {
-        "kind": "serve", "setup_s": setup_s, "window_s": window_s,
+        "setup_s": setup_s, "window_s": window_s,
         "requests": i, "points": sum(sizes), "latencies": latencies,
         "per_second": per_second,
         "peak_bytes": peak, "attempted": i,
@@ -93,10 +97,13 @@ def run(cell, args, device, t_start: float) -> dict:
         profiled = sizes[span["skip"]:span["skip"] + span["profiled"]]
         work = cell.work()
         ctx.update(trace=recorder.result,
-                   profiled_work=[work.request(cfg, n) for n in profiled],
-                   predict_ms=[a.elapsed_time(b) for a, b in events])
+                   profiled_work=[work.request(cfg, n) for n in profiled])
     requests = [pool.request(j) for j in sorted(kept)]
-    ctx["check"] = {"program": [kept[j] for j in sorted(kept)],
+    program = [kept[j] for j in sorted(kept)]
+    ctx["failed"] = sum(1 for out in program
+                        if not all(bool(torch.isfinite(t).all())
+                                   for t in out.values()))
+    ctx["check"] = {"program": program,
                     "requests": [(X.clone(), Y.clone()) for X, Y in requests],
                     "indices": sorted(kept)}
     del served, pool
@@ -113,3 +120,29 @@ def reference(cell, args, device, ctx: dict, precision: str = "reference"):
     return _plain.serve_outputs(cell.reference().predict, cell.config, state,
                                 ctx["check"]["requests"],
                                 _plain.Precision(precision))
+
+
+LIMITS = frozenset({"mean_gap", "var_gap", "assign_gap", "density_gap"})
+
+
+def numbers(prog: list, ref: list) -> dict:
+    def cat(outs, key):
+        return torch.cat([o[key].reshape(-1).double() for o in outs])
+
+    got = {k: cat(prog, k) for k in ("mean", "var", "assign", "density")}
+    want = {k: cat(ref, k) for k in got}
+    nums = {
+        "mean_gap": (got["mean"] - want["mean"]).abs().max()
+                    / want["mean"].abs().max(),
+        "var_gap": ((got["var"] - want["var"]).abs() / want["var"]).max(),
+        "assign_gap": (got["assign"] - want["assign"]).abs().max(),
+        "density_gap": (got["density"] - want["density"]).abs().max(),
+    }
+    return {k: finite(float(v)) for k, v in nums.items()}
+
+
+def summary(ctx: dict) -> list:
+    lat = sorted(ctx["latencies"])
+    return [f"requests {len(lat)}, latency median "
+            f"{1e3 * lat[len(lat) // 2]!r} ms, window {ctx['window_s']!r} s",
+            f"requests in each second of the window: {ctx['per_second']}"]

@@ -1,12 +1,14 @@
 """Find a cell's pieces by the names in BENCHMARK.json.
 
-A cell names a configuration and a traffic mix; each metric names its
-reader.  Nothing here knows a particular cell: a later cell, mix, metric or
-configuration is a new file and a new entry.
+A cell names a configuration and a traffic mix; the mix names its kind,
+``harness/<kind>.py``; each metric names its reader.  Nothing here knows a
+particular cell: a later cell, mix, kind, metric or configuration is a new
+file and a new entry.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -40,6 +42,16 @@ class Cell:
     end_to_end: list       # the cell's end-to-end metric entries
     per_layer: list        # the cell's per-layer metric entries
     limits: dict           # {number: limit} of the comparison deciding correct
+
+    def kind(self):
+        """The module of the traffic's kind, ``harness/<kind>.py``: its
+        ``run(cell, args, device, t_start)``, ``reference(cell, args,
+        device, ctx)``, ``numbers(program, ref)``, ``LIMITS`` (the names of
+        the numbers it compares) and ``summary(ctx)`` (lines for standard
+        error).  Imported as a module of the package, so that it has one
+        module object in a process and its relative imports hold."""
+        return importlib.import_module(
+            f"torchbench.harness.{self.traffic['kind']}")
 
     def reader(self, metric: dict):
         """The ``read(ctx)`` function of a metric's reader."""

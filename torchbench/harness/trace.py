@@ -178,3 +178,46 @@ def idle_share(ctx: dict):
     if trace is None:
         return None
     return 100.0 * (1.0 - trace.busy_s / trace.window_s)
+
+
+def program_spans(ctx: dict):
+    """(the program's ``span_table()``, the number of traced steps or
+    requests), or None where nothing was traced or the program has no
+    spans.  The spans record only while the Recorder's profiler runs."""
+    work = ctx.get("profiled_work")
+    if not work:
+        return None
+    try:
+        from modulatedgps_tpu_torch.utils.profiling import span_table
+    except ImportError:
+        return None
+    return span_table(), len(work)
+
+
+def span_ms(ctx: dict, names, column: str = "device_ms"):
+    """The sum of ``column`` of the program's spans ``names`` per traced
+    step or request; None where nothing was traced or a span is missing or
+    never ran on the card."""
+    spans = program_spans(ctx)
+    if spans is None:
+        return None
+    table, n = spans
+    ms = [table[name][column] for name in names if name in table]
+    if len(ms) < len(names) or None in ms:
+        return None
+    return sum(ms) / n
+
+
+def prefix_ms(ctx: dict, prefix: str, column: str):
+    """The sum of ``column`` of the program's spans whose names start with
+    ``prefix``, per traced step or request; None where nothing was traced,
+    no such span ran, or one never ran on the card."""
+    spans = program_spans(ctx)
+    if spans is None:
+        return None
+    table, n = spans
+    ms = [row[column] for name, row in table.items()
+          if name.startswith(prefix)]
+    if not ms or None in ms:
+        return None
+    return sum(ms) / n

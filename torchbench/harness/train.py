@@ -8,14 +8,26 @@ stream ends the window: its next batch after the deadline raises
 WindowClosed, which leaves run_adam, and the window's last step is the one
 before.  The program is not edited: the harness's hooks are the stream,
 the loss function and the optimizer instance it hands run_adam.
+
+The numbers that decide ``correct`` (each checked step's loss; every
+leaf's gradient norm at step 1 as Adam got it; every leaf's change after
+the checked steps):
+
+    loss_gap   = max_t |L_t - L_t*| / |L_t*|
+    grad_gap   = max_leaf | |g| - |g*| | / max(|g*|, median_leaf |g*|)
+    change_gap = the same of the change norms, over the leaves whose
+                 reference gradient is at least 1e-3 of the median leaf's
+                 (a smaller one moves under Adam by round-off alone)
 """
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
 
 from . import state as st
+from .check import finite
 from .clock import mark
 from .trace import Recorder
 from .traffic import train_data
@@ -58,42 +70,6 @@ class Feed:
             self.kept.append(batch)
         self.count += 1
         return batch
-
-
-class StepEvents:
-    """CUDA events around the loss call and the optimizer's step, through
-    the model's ``training_loss`` (make_train_step's default loss_fn) and
-    the Adam instance's ``step``: (forward, backward, Adam) ms per step."""
-
-    def __init__(self, model, optimizer):
-        self.rows = []
-        self._open = None
-        loss, step = model.training_loss, optimizer.step
-
-        def timed_loss(*args, **kwargs):
-            a = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = loss(*args, **kwargs)
-            b = torch.cuda.Event(enable_timing=True)
-            b.record()
-            self._open = (a, b)
-            return out
-
-        def timed_step():
-            c = torch.cuda.Event(enable_timing=True)
-            c.record()
-            step()
-            d = torch.cuda.Event(enable_timing=True)
-            d.record()
-            self.rows.append((*self._open, c, d))
-
-        model.training_loss, optimizer.step = timed_loss, timed_step
-
-    def ms(self) -> list:
-        """[(forward, backward, Adam) ms] of each step; synchronizes."""
-        torch.cuda.synchronize()
-        return [(a.elapsed_time(b), b.elapsed_time(c), c.elapsed_time(d))
-                for a, b, c, d in self.rows]
 
 
 def _norms(tensors: dict) -> dict:
@@ -153,10 +129,9 @@ def run(cell, args, device, t_start: float) -> dict:
         torch.cuda.synchronize()
     mark("warm-up")
 
-    events = recorder = None
+    recorder = None
     if args.trace:
         recorder = Recorder()
-        events = StepEvents(model, optimizer)
         feed.gathers = []
         span = mix["trace"]
         feed.at = {span["skip"]: recorder.start,
@@ -179,7 +154,7 @@ def run(cell, args, device, t_start: float) -> dict:
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     ctx = {
-        "kind": "train", "setup_s": setup_s, "window_s": window_s,
+        "setup_s": setup_s, "window_s": window_s,
         "steps": steps, "points": steps * mix["batch"], "peak_bytes": peak,
         "attempted": steps, "failed": sum(1 for e in elbos
                                           if e != e or abs(e) == float("inf")),
@@ -190,7 +165,7 @@ def run(cell, args, device, t_start: float) -> dict:
         ctx.update(trace=recorder.result,
                    profiled_work=[cell.work().train_step(cfg, mix["batch"])]
                    * profiled,
-                   step_ms=events.ms(), gathers=feed.gathers)
+                   gathers=feed.gathers)
     del model, optimizer, feed, X, Y
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -209,3 +184,27 @@ def reference(cell, args, device, ctx: dict, precision: str = "reference"):
                                  chk["batches"], chk["noise_seed"],
                                  len(chk["batches"]),
                                  _plain.Precision(precision))
+
+
+LIMITS = frozenset({"loss_gap", "grad_gap", "change_gap"})
+GRAD_FLOOR = 1e-3
+
+
+def numbers(prog: dict, ref: dict) -> dict:
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(prog["losses"], ref["losses"]))
+    g_ref = ref["grad_norms"]
+    g_med = statistics.median(g_ref.values())
+    grad_gap = max(abs(prog["grad_norms"][k] - g) / max(g, g_med)
+                   for k, g in g_ref.items())
+    counted = [k for k, g in g_ref.items() if g >= GRAD_FLOOR * g_med]
+    c_ref = ref["change_norms"]
+    c_med = statistics.median(c_ref[k] for k in counted)
+    change_gap = max(abs(prog["change_norms"][k] - c_ref[k])
+                     / max(c_ref[k], c_med) for k in counted)
+    return {"loss_gap": finite(loss_gap), "grad_gap": finite(grad_gap),
+            "change_gap": finite(change_gap)}
+
+
+def summary(ctx: dict) -> list:
+    return [f"steps {ctx['steps']}, window {ctx['window_s']!r} s"]

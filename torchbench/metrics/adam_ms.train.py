@@ -1,7 +1,8 @@
-"""adam_ms.train: device milliseconds per step from CUDA events around
-the Adam instance's step, mean over the traced run's window."""
+"""adam_ms.train: device milliseconds per step of the program's span
+mgp.adam (the optimizer's step): its CUDA-event times over the traced
+steps.  Nothing where the program has no spans."""
+from torchbench.harness.trace import span_ms
 
 
 def read(ctx):
-    rows = ctx.get("step_ms")
-    return sum(r[2] for r in rows) / len(rows) if rows else None
+    return span_ms(ctx, ("mgp.adam",), "outer_device_ms")

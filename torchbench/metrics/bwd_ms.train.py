@@ -1,7 +1,8 @@
-"""bwd_ms.train: device milliseconds per step from CUDA events around
-the end of the loss call to the start of the optimizer's step (backward()), mean over the traced run's window."""
+"""bwd_ms.train: device milliseconds per step of the program's span
+mgp.backward (the loss's backward()): its CUDA-event times over the traced
+steps.  Nothing where the program has no spans."""
+from torchbench.harness.trace import span_ms
 
 
 def read(ctx):
-    rows = ctx.get("step_ms")
-    return sum(r[1] for r in rows) / len(rows) if rows else None
+    return span_ms(ctx, ("mgp.backward",), "outer_device_ms")

@@ -1,7 +1,9 @@
-"""fwd_ms.train: device milliseconds per step from CUDA events around
-the loss call (make_train_step's loss_fn, the model's training_loss), mean over the traced run's window."""
+"""fwd_ms.train: device milliseconds per step of the program's span
+mgp.loss (make_train_step's loss call, the model's training_loss): its
+CUDA-event times over the traced steps.  Nothing where the program has no
+spans."""
+from torchbench.harness.trace import span_ms
 
 
 def read(ctx):
-    rows = ctx.get("step_ms")
-    return sum(r[0] for r in rows) / len(rows) if rows else None
+    return span_ms(ctx, ("mgp.loss",), "outer_device_ms")

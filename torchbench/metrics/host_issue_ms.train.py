@@ -3,17 +3,8 @@ mgp.step (make_train_step's step, zero_grad to the optimizer's step: the
 host's time to issue the step, with any wait for the card inside it) over
 the traced steps, with the profiler on.  Nothing where the program has no
 spans."""
+from torchbench.harness.trace import span_ms
 
 
 def read(ctx):
-    work = ctx.get("profiled_work")
-    if not work:
-        return None
-    try:
-        from modulatedgps_tpu_torch.utils.profiling import span_table
-    except ImportError:
-        return None
-    row = span_table().get("mgp.step")
-    if row is None:
-        return None
-    return row["host_ms"] / len(work)
+    return span_ms(ctx, ("mgp.step",), "host_ms")

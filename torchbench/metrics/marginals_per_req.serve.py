@@ -1,17 +1,8 @@
 """marginals_per_req.serve: the calls of the program's span
 mgp.posterior.predict_f (a cached layer's marginals) per traced request.
 Nothing where the program has no spans."""
+from torchbench.harness.trace import span_ms
 
 
 def read(ctx):
-    work = ctx.get("profiled_work")
-    if not work:
-        return None
-    try:
-        from modulatedgps_tpu_torch.utils.profiling import span_table
-    except ImportError:
-        return None
-    row = span_table().get("mgp.posterior.predict_f")
-    if row is None:
-        return None
-    return row["calls"] / len(work)
+    return span_ms(ctx, ("mgp.posterior.predict_f",), "calls")

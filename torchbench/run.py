@@ -8,9 +8,11 @@ for.  With --trace 0 the line holds the cell's end-to-end metrics, with
 --trace 1 its per-layer metrics (and the device's busy and window seconds
 and a breakdown of the trace).  The numbers that decide ``correct`` are
 printed beside their limits as the last lines on standard error and under
-the line's last key, ``checks``.  Exits non-zero, printing no result,
-without enough cards, without the program, or when a module of JAX or of
-the JAX package was loaded.
+the line's last key, ``checks``.  A cell on one card runs in this process;
+a cell on more starts one rank of this script a card and joins them
+(harness/ranks.py).  Exits non-zero, printing no result, without enough
+cards, without the program, when a rank fails, or when a module of JAX or
+of the JAX package was loaded.
 """
 import time
 
@@ -58,42 +60,40 @@ def power_limit() -> str:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse(argv)
     for var, sub in CACHES.items():
         os.environ[var] = str(BENCH / "_cache" / sub)
     sys.path.insert(0, str(ROOT))
-    from torchbench.harness import clock, guard, spec
+    from torchbench.harness import clock, guard, ranks, spec
     cell = spec.load_cell(args.workload)
 
     import torch
     clock.mark("import torch")
+    if ranks.in_rank():
+        return ranks.run_rank(cell, args)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"torchbench: {args.workload} needs {cell.chips} CUDA device(s); "
               f"available: {torch.cuda.is_available()}, count "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    from torchbench.harness.runner import GIB, run_cell
-    result, ctx = run_cell(cell, args, torch.device("cuda"), T_START)
+    if cell.chips > 1:
+        rows = ranks.launch([sys.executable, str(Path(__file__).resolve()),
+                             *argv], cell.chips,
+                            args.seconds + ranks.ALLOWANCE_S, T_START)
+        if rows is None:
+            return 1
+        result, lines = ranks.join(cell, rows)
+    else:
+        from torchbench.harness.runner import run_cell
+        result, lines = run_cell(cell, args, torch.device("cuda"), T_START)
     found = guard.forbidden_modules()
     if found:
         print(f"torchbench: JAX was loaded: {found}", file=sys.stderr)
         return 3
     print(f"card: {power_limit()}", file=sys.stderr)
-    if ctx["kind"] == "serve":
-        lat = sorted(ctx["latencies"])
-        print(f"requests {len(lat)}, latency median "
-              f"{1e3 * lat[len(lat) // 2]!r} ms, window {ctx['window_s']!r} s",
-              file=sys.stderr)
-        print(f"requests in each second of the window: {ctx['per_second']}",
-              file=sys.stderr)
-    else:
-        print(f"steps {ctx['steps']}, window {ctx['window_s']!r} s",
-              file=sys.stderr)
-    print(f"setup_s {ctx['setup_s']!r}, peak {ctx['peak_bytes'] / GIB!r} GiB",
-          file=sys.stderr)
-    print("setup parts: " + ", ".join(f"{label} {s!r}" for label, s
-                                      in clock.parts(T_START)),
-          file=sys.stderr)
+    for line in lines:
+        print(line, file=sys.stderr)
     for name, row in result["checks"].items():
         print(f"check {name} {row['value']!r} limit {row['limit']!r}",
               file=sys.stderr)

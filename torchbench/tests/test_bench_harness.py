@@ -129,3 +129,36 @@ def test_readers_of_an_untraced_run_return_nothing():
     ctx = {"kind": "train", "latencies": [], "points": 0, "window_s": 1.0}
     for metric in bench["per_layer"]:
         assert cell.reader(metric)(ctx) is None, metric["name"]
+
+
+@pytest.mark.parametrize("name,want", [
+    ("fwd_ms.train", 140.0 / 4), ("bwd_ms.train", 200.0 / 4),
+    ("adam_ms.train", 8.0 / 4),
+    # the outermost predict spans: predict_density's own assign left out
+    ("predict_ms.serve", (40.0 + 30.0 + 50.0) / 4),
+])
+def test_span_readers_read_the_program_spans(monkeypatch, name, want):
+    """The device ms of the program's spans per traced step or request,
+    and nothing from a program without spans."""
+    from modulatedgps_tpu_torch.utils import profiling
+    from torchbench.harness import spec
+
+    def row(calls, device_ms, outer=None):
+        outer = device_ms if outer is None else outer
+        return {"calls": calls, "host_ms": 1.0, "device_ms": device_ms,
+                "outer_calls": calls, "outer_host_ms": 1.0,
+                "outer_device_ms": outer}
+
+    table = {"mgp.step": row(4, 360.0), "mgp.loss": row(4, 140.0),
+             "mgp.backward": row(4, 200.0), "mgp.adam": row(4, 8.0),
+             "mgp.predict_y": row(4, 40.0),
+             "mgp.predict_assign": row(8, 60.0, 30.0),
+             "mgp.predict_density": row(4, 50.0),
+             "mgp.posterior.predict_f": row(8, 100.0)}
+    cell = spec.load_cell("smgp.train")
+    read = cell.reader({"name": name})
+    monkeypatch.setattr(profiling, "span_table", lambda: table)
+    assert read({"profiled_work": [None] * 4}) == pytest.approx(want)
+    assert read({"profiled_work": []}) is None
+    monkeypatch.delattr(profiling, "span_table")
+    assert read({"profiled_work": [None] * 4}) is None

@@ -20,34 +20,64 @@ def test_top_level_keys():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
+def unexplained(data: dict) -> list:
+    """The keys of ``reduced`` that neither a key of ``assumed`` nor the
+    ``deployment`` explains (model-configs guide, section 4)."""
+    told = {k.strip() for keys in data.get("assumed", {})
+            for k in keys.split(",")}
+    return [k for k in data["reduced"]
+            if k not in told and k not in data.get("deployment", "")]
+
+
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_found_by_name(cfg):
     data = json.loads((ROOT / cfg["file"]).read_text())
     assert data["name"] == cfg["name"]
     assert data["source"] == cfg["source"]
-    assert data["reduced"] == cfg["reduced"] == []
+    assert data["reduced"] == cfg["reduced"]
+    assert unexplained(data) == []
     for key in ("assumed", "deployment", "M", "K", "D", "S", "dtype"):
         assert key in data
     for kind in ("reference", "work"):
         assert (ROOT / "torchbench" / kind / f"{cfg['name']}.py").exists()
 
 
+@pytest.mark.parametrize("data,left", [
+    ({"reduced": [], "assumed": {}, "deployment": ""}, []),
+    ({"reduced": ["num_data", "layers"],
+      "assumed": {"M, num_data": "cut to fit"},
+      "deployment": "layers: the card's share of a pipeline"}, []),
+    ({"reduced": ["num_data"], "assumed": {"M": "the source's"},
+      "deployment": "one card"}, ["num_data"]),
+])
+def test_reduced_keys_must_be_explained(data, left):
+    assert unexplained(data) == left
+
+
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cell_found_by_name(cell):
     from torchbench.harness import spec
     loaded = spec.load_cell(cell["name"])
-    assert loaded.chips == cell["chips"] == 1
-    assert loaded.traffic["kind"] in ("train", "serve")
+    assert loaded.chips == cell["chips"]
+    assert loaded.chips in (1, 4)
+    kind = loaded.traffic["kind"]
+    assert (ROOT / "torchbench" / "harness" / f"{kind}.py").exists()
+    module = loaded.kind()
+    for name in ("run", "reference", "numbers", "summary"):
+        assert callable(getattr(module, name)), name
     assert loaded.end_to_end and loaded.per_layer
     assert "setup_s" in {m["name"] for m in loaded.end_to_end}
     assert len(loaded.end_to_end) >= 2
     for m in loaded.end_to_end + loaded.per_layer:
         assert callable(loaded.reader(m))
-    assert set(loaded.limits) == {
-        "train": {"loss_gap", "grad_gap", "change_gap"},
-        "serve": {"mean_gap", "var_gap", "assign_gap", "density_gap"},
-    }[loaded.traffic["kind"]]
+    assert set(loaded.limits) == set(module.LIMITS)
     assert len(cell["why"]) <= 200
+
+
+def test_few_cells_on_four_cards():
+    """At most a quarter of the cells, rounded down, or one, take 4."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

@@ -42,9 +42,12 @@ def test_train_step_by_hand(name):
 
 
 def test_request_by_hand():
+    # the prediction layer's marginals; the assignment layer's mean alone:
+    # Kmn's 12 entries at 5 FLOPs and Kmn^T q_mu 48; its cache Z and q_mu
     cfg = small("smgp_gauss_k8_m4096")
-    served = 2 * (5 * 12 + 60 + 24 + 48 + 120 + 48) + 8 * 3 * 2 + 16 * 3 * 2
-    cache = 2 * (10 * 4 + 2 * 10 * 2 + 4 * 4 + 8 * 4)
+    served = ((5 * 12 + 60 + 24 + 48 + 120 + 48) + (5 * 12 + 48)
+              + 8 * 3 * 2 + 16 * 3 * 2)
+    cache = (10 * 4 + 2 * 10 * 2 + 4 * 4 + 8 * 4) + (4 * 4 + 8 * 4)
     got = _count.request(cfg, 3)
     assert got == {"flops": served, "bytes": cache + 3 * 2 * 4 + 3 * 7 * 4}
 

@@ -6,14 +6,17 @@ its shapes alone: the model's work, not an implementation's.
   passes and not a padded square.  A multiply-add is 2 FLOPs.
 - Marginals count once, not once per sample; nothing recomputed counts
   (predict_density's second pass over the layers is the served marginals
-  again).
+  again).  A request's outputs need the prediction layer's marginals and
+  the assignment layer's mean alone: no output reads that layer's
+  variance.
 - A training step is three times its forward work (the backward's two
   products per forward product), plus Adam.
 - Bytes count the step's or request's true inputs and outputs once each,
   at the narrowest precision their class allows: the parameters read and
   written, the gradients once, Adam's moments read and written, the batch;
-  for a request the served caches (the factor's inverse in float32, S in
-  bf16, triangles only), the inputs and the outputs.  Intermediates do not
+  for a request the served caches (the prediction layer's factor inverse in
+  float32 and S in bf16, triangles only; Z and q_mu of both layers), the
+  inputs and the outputs.  Intermediates do not
   count.
 """
 from __future__ import annotations
@@ -42,8 +45,14 @@ def layer_forward_flops(M: int, K: int, D: int, N: int) -> float:
 
 def layer_served_flops(M: int, K: int, D: int, n: int) -> float:
     """A cached layer's marginals at n points (no factor, no solve)."""
-    return (kernel_entry_flops(D) * M * n + M * (M + 1) * n + 2 * M * n
-            + 2 * M * n * K + K * n * M * (M + 1) + 2 * K * n * M)
+    return (layer_mean_flops(M, K, D, n) + M * (M + 1) * n + 2 * M * n
+            + K * n * M * (M + 1) + 2 * K * n * M)
+
+
+def layer_mean_flops(M: int, K: int, D: int, n: int) -> float:
+    """A cached layer's mean alone at n points: K(Z, X) and K(Z, X)^T q_mu
+    (the whitened alpha)."""
+    return kernel_entry_flops(D) * M * n + 2 * M * n * K
 
 
 def likelihood_flops(spec: dict, K: int, n: int) -> float:
@@ -82,13 +91,13 @@ def train_step(cfg: dict, batch: int) -> dict:
 def request(cfg: dict, n: int) -> dict:
     M, K, D = cfg["M"], cfg["K"], cfg["D"]
     lik = cfg["likelihood"]
-    served = 2 * layer_served_flops(M, K, D, n)
+    served = layer_served_flops(M, K, D, n) + layer_mean_flops(M, K, D, n)
     if lik["kind"] == "MultiClass":        # predict_y: one quadrature a class
         served += K * likelihood_flops(lik, K, n)
     else:
         served += likelihood_flops(lik, K, n)
     served += 4 * n * K + 12 * n * K        # softmax, mixture density
     tri = M * (M + 1) // 2
-    cache = 2 * (tri * F32 + K * tri * BF16 + M * D * F32 + M * K * F32)
+    cache = tri * F32 + K * tri * BF16 + 2 * (M * D * F32 + M * K * F32)
     return {"flops": served,
             "bytes": cache + n * (D + 1) * F32 + n * (3 * K + 1) * F32}
