@@ -16,6 +16,10 @@ explicit (collectives.py, with their gradients):
   owner's block of the right side is psum-broadcast, solved, and folded
   into every rank's remaining rows.
 
+The factor's forward and its backward are the spans ``mgp.dist.chol.fwd``
+and ``mgp.dist.chol.bwd`` (``utils.profiling.region``), each with the
+collectives inside it.
+
 The diagonal block's factor is ``ops.linalg.cholesky`` (kernel #15 on the
 card, its pullback on #2 and #10/#11) and the two solves are
 ``ops.linalg.solve_lower`` (#2, #4 in the pullback): no cuSOLVER or library
@@ -29,6 +33,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.linalg import cholesky_with_inv, solve_lower
+from ..utils.profiling import region
 from .collectives import all_gather, psum
 from .mesh import axis_group
 
@@ -64,6 +69,11 @@ def _insert(rows, blk, own, offc):
 def _chol_local(A_loc, *, group, index: int, block: int):
     """This rank's rows [M / P, M] of the lower factor of the global SPD
     matrix whose rows A_loc holds."""
+    return region("mgp.dist.chol", _chol_panels, A_loc, group=group,
+                  index=index, block=block)
+
+
+def _chol_panels(A_loc, *, group, index: int, block: int):
     rpd, M = A_loc.shape
     grow = index * rpd + torch.arange(rpd, device=A_loc.device)
     gcol = torch.arange(M, device=A_loc.device)

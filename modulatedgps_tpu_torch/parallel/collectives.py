@@ -29,40 +29,71 @@ follows.
 Every Function takes a process group (a ``DeviceMesh`` axis's group, see
 ``mesh.axis_group``) and works on any tensor of the group's backend: CPU
 tensors on gloo, CUDA tensors on NCCL.
+
+Each call of a torch.distributed collective here, forward or pullback, is
+a span ``mgp.dist.comm.<collective>`` (kind ``mgp.dist.comm``), and adds
+the bytes this rank sends, counted from the shapes as NCCL's ring
+algorithms send them, to the counter ``mgp.dist.sent.<collective>``
+(utils/profiling: both only while a torch profiler records).  Over P ranks
+and an input x of b bytes: all_gather (P - 1) b, reduce_scatter
+b (P - 1) / P, all_reduce 2 b (P - 1) / P, ppermute b to each other rank
+it sends to.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "psum", "psum_scatter", "ppermute", "share",
-           "ring_perm"]
+from ..utils.profiling import count, span
+
+__all__ = ["all_gather", "psum", "psum_scatter", "ppermute", "psum_",
+           "share", "ring_perm"]
+
+
+def _traffic(collective: str, x: torch.Tensor, sent: int):
+    """The span of one collective call, its bytes sent counted."""
+    count(f"mgp.dist.sent.{collective}", sent)
+    return span(f"mgp.dist.comm.{collective}", x, "mgp.dist.comm")
+
+
+def _bytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _gather0(x: torch.Tensor, group) -> torch.Tensor:
     """[P * n, ...] from each rank's [n, ...], in group-rank order (the
     single-tensor all-gather under its newer name where torch has it)."""
-    out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
+    size = dist.get_world_size(group)
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
     gather = (getattr(dist, "all_gather_single", None)
               or dist.all_gather_into_tensor)
-    gather(out, x.contiguous(), group=group)
+    with _traffic("all_gather", x, (size - 1) * _bytes(x)):
+        gather(out, x.contiguous(), group=group)
     return out
 
 
 def _scatter0(x: torch.Tensor, group) -> torch.Tensor:
     """This rank's [n, ...] block of the sum over ranks of [P * n, ...]."""
-    out = x.new_empty((x.shape[0] // dist.get_world_size(group),
-                       *x.shape[1:]))
+    size = dist.get_world_size(group)
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
     scatter = (getattr(dist, "reduce_scatter_single", None)
                or dist.reduce_scatter_tensor)
-    scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
+    with _traffic("reduce_scatter", x, (size - 1) * _bytes(x) // size):
+        scatter(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def psum_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (contiguous) summed over the group's ranks in place, outside
+    autograd (a gradient's completion); returns ``x``."""
+    size = dist.get_world_size(group)
+    with _traffic("all_reduce", x, 2 * (size - 1) * _bytes(x) // size):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return psum_(x.clone(memory_format=torch.contiguous_format), group)
 
 
 class _AllGather(torch.autograd.Function):
@@ -106,19 +137,21 @@ def _permute(x: torch.Tensor, group, perm) -> torch.Tensor:
     me = dist.get_rank(group)
     x = x.contiguous()
     out = torch.zeros_like(x)
-    ops = []
+    ops, sends = [], 0
     for src, dst in perm:
         if src == me == dst:
             out.copy_(x)
         elif src == me:
+            sends += 1
             ops.append(dist.P2POp(dist.isend, x,
                                   dist.get_global_rank(group, dst), group))
         elif dst == me:
             ops.append(dist.P2POp(dist.irecv, out,
                                   dist.get_global_rank(group, src), group))
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with _traffic("ppermute", x, sends * _bytes(x)):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     return out
 
 

@@ -52,7 +52,6 @@ from __future__ import annotations
 import copy
 
 import torch
-import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -60,8 +59,9 @@ from ..config import default_jitter
 from ..models.svgp import SVGP
 from ..ops.linalg import solve_lower
 from ..params import Parameter
+from ..utils.profiling import region, span
 from .blocked import _check, _chol_local
-from .collectives import all_gather, ppermute, psum, ring_perm, share
+from .collectives import all_gather, ppermute, psum, psum_, ring_perm, share
 from .mesh import axis_group
 
 __all__ = [
@@ -221,7 +221,12 @@ def _quad_ring(Lq_loc, A_loc, *, group, nshards: int):
     """extra[k, n] = sum over ALL global columns p of (Lq[:, :, p]^T a_n)^2
     for this rank's batch columns a_n: the column blocks of the masked Lq
     rotate around a ppermute ring.  Payload per rank (P - 1) / P K M^2 each
-    way, whatever N."""
+    way, whatever N.  Spans mgp.dist.ring.fwd / .bwd."""
+    return region("mgp.dist.ring", _ring, Lq_loc, A_loc, group=group,
+                  nshards=nshards)
+
+
+def _ring(Lq_loc, A_loc, *, group, nshards: int):
     K, M, rpd = Lq_loc.shape
     extra = A_loc.new_zeros((K, A_loc.shape[1]))
     perm = ring_perm(nshards)
@@ -358,7 +363,8 @@ def make_inducing_sharded_train_step(optimizer, mesh: DeviceMesh, *,
     The backward of loss / P runs the collectives' pullbacks (the sharded
     leaves' gradients come out whole); one all-reduce over ``axis`` sums
     the replicated leaves' gradients; Adam then updates each rank's leaves
-    where they lie."""
+    where they lie.  The spans are make_train_step's: ``mgp.step`` around
+    ``mgp.loss``, ``mgp.backward`` (with the all-reduce) and ``mgp.adam``."""
     group = axis_group(mesh, axis)[0]
     replicated = [p for name, p in zip(optimizer.names, optimizer.params)
                   if _spec_for(name, p.ndim, axis) == ()]
@@ -368,18 +374,23 @@ def make_inducing_sharded_train_step(optimizer, mesh: DeviceMesh, *,
                    for layer in (model.pred_layer, model.assign_layer)):
             raise ValueError("place the model with inducing_shard_state "
                              "and build the optimizer on it")
-        optimizer.zero_grad()
-        loss = -inducing_sharded_elbo(model, generator, X_local, Y_local,
-                                      mesh, axis=axis, block=block)
-        share(loss, group).backward()
-        if replicated:
-            flat = torch.cat([p.grad.reshape(-1) for p in replicated])
-            dist.all_reduce(flat, group=group)
-            at = 0
-            for p in replicated:
-                p.grad = flat[at:at + p.numel()].view_as(p)
-                at += p.numel()
-        optimizer.step()
+        with span("mgp.step", X_local):
+            optimizer.zero_grad()
+            with span("mgp.loss", X_local):
+                loss = -inducing_sharded_elbo(model, generator, X_local,
+                                              Y_local, mesh, axis=axis,
+                                              block=block)
+            with span("mgp.backward", X_local):
+                share(loss, group).backward()
+                if replicated:
+                    flat = psum_(torch.cat([p.grad.reshape(-1)
+                                            for p in replicated]), group)
+                    at = 0
+                    for p in replicated:
+                        p.grad = flat[at:at + p.numel()].view_as(p)
+                        at += p.numel()
+            with span("mgp.adam", X_local):
+                optimizer.step()
         return loss.detach()
 
     return step

@@ -16,7 +16,12 @@ and one global read.  While one records, each span is a
 ``record_function`` range on the trace's clock (named ``mgp.*``, so a
 trace reader tells it from aten ops), timed by the host clock and, on the
 card, by CUDA events on the current stream; ``span_table()`` sums them by
-name, ``reset_spans()`` clears them.
+name, ``reset_spans()`` clears them.  ``region(name, fn, *tensors)`` spans
+a composite of ordinary ops, ``name.fwd`` around ``fn`` and ``name.bwd``
+from the first of its pullbacks to the last.  ``count(name, n)`` adds to a
+counter (the collectives' bytes sent) under the same rule: only while a
+profiler records; ``counter_table()`` reads them, ``reset_spans()`` clears
+them too.
 
 ``kernel_times`` profiles one call and returns the device time of each
 kernel, from kernel-level events only: an autograd Function's range in
@@ -34,8 +39,9 @@ import time
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "span", "span_table", "reset_spans", "flops_estimate",
-           "intercepting", "kernel_times", "SPAN_PREFIX", "STAND_IN_KERNEL"]
+__all__ = ["trace", "span", "region", "span_table", "count", "counter_table",
+           "reset_spans", "flops_estimate", "intercepting", "kernel_times",
+           "SPAN_PREFIX", "STAND_IN_KERNEL"]
 
 # kernel_times' stand-ins: the kernel torch.cuda._sleep launches, how many
 # open each of its steps, and the host seconds from them to what follows.
@@ -80,6 +86,8 @@ _OFF = contextlib.nullcontext()
 _SPANS: dict[str, list] = {}
 # Per thread: {kind: how many spans of that kind are open}.
 _DEPTH = threading.local()
+# {name: [amount]}: count()'s additions, kept while a profiler records.
+_COUNTS: dict[str, list] = {}
 
 
 def span(name: str, tensor: torch.Tensor | None = None,
@@ -162,8 +170,84 @@ def span_table() -> dict:
 
 
 def reset_spans() -> None:
-    """Forget every span recorded so far."""
+    """Forget every span and count recorded so far."""
     _SPANS.clear()
+    _COUNTS.clear()
+
+
+def count(name: str, amount: int) -> None:
+    """Add ``amount`` to the counter ``name`` (``mgp.*``) while a torch
+    profiler records; nothing otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        _COUNTS.setdefault(name, []).append(amount)
+
+
+def counter_table() -> dict:
+    """{name: {"calls", "total"}} of every counter added to since the last
+    ``reset_spans``."""
+    return {name: {"calls": len(adds), "total": sum(adds)}
+            for name, adds in list(_COUNTS.items())}
+
+
+class _Region:
+    """The backward of one ``region`` call: its span is opened by the
+    pullback of the region's output, which autograd runs first, and closed
+    by the last of the pullbacks of its inputs."""
+    __slots__ = ("name", "kind", "inputs", "left", "open")
+
+    def __init__(self, name, kind, inputs):
+        self.name, self.kind, self.inputs = name, kind, inputs
+        self.left, self.open = inputs, None
+
+    def start(self, g):
+        if self.open is None:
+            self.open = span(self.name, g, self.kind)
+            self.open.__enter__()
+
+    def end(self, g):
+        self.left -= 1
+        if self.left == 0:
+            if self.open is not None:
+                self.open.__exit__(None, None, None)
+            self.open, self.left = None, self.inputs
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, whose pullback calls ``action(gradient)``."""
+
+    @staticmethod
+    def forward(ctx, x, action):
+        ctx.action = action
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.action(g)
+        return g, None
+
+
+def region(name: str, fn, *tensors, **kwargs):
+    """``fn(*tensors, **kwargs)`` (one tensor out) as a spanned part of the
+    program made of ordinary ops: its forward under ``span(name + ".fwd")``
+    and, where autograd records it, its backward under ``span(name +
+    ".bwd")``, from the pullback of the output to the last pullback of an
+    input that requires grad (autograd runs a graph's later nodes first, so
+    the nodes between are the region's).  Both spans are of the kind
+    ``name``.  While no torch profiler records it is ``fn`` itself: no
+    span, and no node added to the graph."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return fn(*tensors, **kwargs)
+    needs = (sum(t.requires_grad for t in tensors)
+             if torch.is_grad_enabled() else 0)
+    marks = _Region(f"{name}.bwd", name, needs) if needs else None
+    if marks is not None:
+        tensors = tuple(_Mark.apply(t, marks.end) if t.requires_grad else t
+                        for t in tensors)
+    with span(f"{name}.fwd", tensors[0], name):
+        out = fn(*tensors, **kwargs)
+    if marks is not None and out.requires_grad:
+        out = _Mark.apply(out, marks.start)
+    return out
 
 
 class _StandIn:
