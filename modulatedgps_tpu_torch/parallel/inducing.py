@@ -24,12 +24,17 @@ grows with N:
 The q_sqrt quadratic sum_p (Lq^T A)^2[p, n] couples every global column p
 with every local batch column: the column blocks of Lq travel around a
 ``ppermute`` ring in P - 1 steps, each rank adding its columns' partial
-sums for the visiting block.  Payload per rank K M^2 (P - 1) / P a layer,
-forward and backward, whatever N.  Its product is a plain fp32 matmul (TF32
-is off package-wide), as JAX leaves the einsum to XLA.  The whitened KL is
-exact on the same layout: ||q_mu||^2 over rows, ||tril(q_sqrt)||^2 over
-columns, the log-diagonal at local column p == global row i M / P + p; it
-stays plain sums (kernels #12/#13 take a whole lower-triangular
+sums for the visiting block.  The block of owner j is zero above global row
+j M / P, so each turn's products run over the rows below it alone: over a
+rank's P turns (P + 1) / (2 P) of the full products.  On the card the
+ring's transfers run on a side stream, each sent on before the turn's
+products, so a rank runs its turns back to back and waits only for each
+block's arrival.  Payload per rank K M^2 (P - 1) / P a layer, forward and
+backward, whatever N: whole blocks.  Its products are plain fp32 matmuls
+(TF32 is off package-wide), as JAX leaves the einsum to XLA.  The whitened
+KL is exact on the same layout: ||q_mu||^2 over rows, ||tril(q_sqrt)||^2
+over columns, the log-diagonal at local column p == global row i M / P + p;
+it stays plain sums (kernels #12/#13 take a whole lower-triangular
 [K, M, M], which a column block is not).
 
 A sharded layer is a ``ShardedSVGP`` holding the local blocks; its
@@ -217,27 +222,125 @@ def _local_leaves(layer, index: int, nshards: int):
             layer.q_sqrt.raw[:, :, rows])
 
 
-def _quad_ring(Lq_loc, A_loc, *, group, nshards: int):
+def _quad_ring(Lq_loc, A_loc, *, group, index: int, nshards: int):
     """extra[k, n] = sum over ALL global columns p of (Lq[:, :, p]^T a_n)^2
     for this rank's batch columns a_n: the column blocks of the masked Lq
-    rotate around a ppermute ring.  Payload per rank (P - 1) / P K M^2 each
-    way, whatever N.  Spans mgp.dist.ring.fwd / .bwd."""
+    rotate around a ppermute ring.  Each turn's products run over the rows
+    at and below the visiting block's first global column (the rows above
+    are the global mask's zeros, and are never read), (P + 1) / (2 P) of the
+    full products over a rank's P turns.  On the card the transfers run on a
+    stream of their own, so that a turn waits only for its own block and
+    never for the neighbours' products.  Payload per rank (P - 1) / P K M^2
+    each way, whatever N: whole blocks, as the full products sent them.
+    Spans mgp.dist.ring.fwd / .bwd."""
     return region("mgp.dist.ring", _ring, Lq_loc, A_loc, group=group,
-                  nshards=nshards)
+                  index=index, nshards=nshards)
 
 
-def _ring(Lq_loc, A_loc, *, group, nshards: int):
-    K, M, rpd = Lq_loc.shape
-    extra = A_loc.new_zeros((K, A_loc.shape[1]))
-    perm = ring_perm(nshards)
-    blk = Lq_loc
-    for s in range(nshards):
-        # [K, M / P, M] @ [M, N / P]: one fp32 matmul over K * M / P rows.
-        lta = (blk.transpose(1, 2).reshape(K * rpd, M) @ A_loc)
-        extra = extra + lta.square().reshape(K, rpd, -1).sum(1)
-        if s < nshards - 1:
-            blk = ppermute(blk, group, perm)
-    return extra                                             # [K, N / P]
+def _ring(Lq_loc, A_loc, *, group, index: int, nshards: int):
+    keep = torch.is_grad_enabled() and (Lq_loc.requires_grad
+                                        or A_loc.requires_grad)
+    return _Ring.apply(Lq_loc, A_loc, group, index, nshards, keep)
+
+
+_SIDE: dict = {}
+
+
+def _side_stream(t: torch.Tensor, nshards: int):
+    """The stream the ring's transfers and cotangent sums run on, one a
+    card; None on the CPU (gloo runs each transfer to its end on the host)
+    and on one rank (nothing travels)."""
+    if not t.is_cuda or nshards == 1:
+        return None
+    if t.device not in _SIDE:
+        _SIDE[t.device] = torch.cuda.Stream(t.device)
+    return _SIDE[t.device]
+
+
+def _first_row(index: int, turn: int, nshards: int, rpd: int) -> int:
+    """The first non-zero row of the block a rank holds at ``turn``: that
+    of owner (index - turn) mod P, whose columns start there."""
+    return (index - turn) % nshards * rpd
+
+
+class _Ring(torch.autograd.Function):
+    """The ring of _quad_ring.  At turn s the rank holds owner j's block,
+    r0 = j M / P; it sends the block on before the turn's product
+    W^T A_loc[r0:] (W: the block's rows r0: as [K M / P, M - r0], kept for
+    the pullback), and the turn waits for that block's arrival alone.  The
+    pullback computes each turn's block cotangent and A_loc's share on the
+    compute stream, and the reverse ring adds the turns' cotangents and
+    sends them back on the side stream.  Tensors that cross the streams are
+    recorded on the stream that reads them.  On the CPU the same calls run
+    in the same order, each transfer to its end."""
+
+    @staticmethod
+    def forward(ctx, Lq_loc, A_loc, group, index, nshards, keep):
+        K, M, rpd = Lq_loc.shape
+        side = _side_stream(Lq_loc, nshards)
+        compute = (torch.cuda.current_stream(Lq_loc.device) if side
+                   else None)
+        ctx.group, ctx.index, ctx.nshards = group, index, nshards
+        ctx.turns = []
+        extra = A_loc.new_zeros((K, A_loc.shape[1]))
+        blk = Lq_loc.contiguous()
+        if side is not None:
+            side.wait_stream(compute)
+            blk.record_stream(side)
+        for s in range(nshards):
+            r0 = _first_row(index, s, nshards, rpd)
+            if s < nshards - 1:
+                with torch.cuda.stream(side):
+                    nxt = ppermute(blk, group, ring_perm(nshards))
+                    arrived = side.record_event() if side else None
+            # [K M / P, M - r0] @ [M - r0, N / P]: one fp32 matmul.
+            W = blk[:, r0:].transpose(1, 2).reshape(K * rpd, M - r0)
+            lta = W @ A_loc[r0:]
+            extra += lta.view(K, rpd, -1).square().sum(1)
+            if keep:
+                ctx.turns.append((W, lta))
+            if s < nshards - 1:
+                if side is not None:
+                    compute.wait_event(arrived)
+                    nxt.record_stream(compute)
+                blk = nxt
+        ctx.shape = (K, M, rpd)
+        ctx.save_for_backward(A_loc)
+        return extra                                         # [K, N / P]
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.turns:
+            raise RuntimeError("the q_sqrt ring's pullback runs once: its "
+                               "turns were freed by the first")
+        (A_loc,), (K, M, rpd) = ctx.saved_tensors, ctx.shape
+        group, index, nshards = ctx.group, ctx.index, ctx.nshards
+        turns, ctx.turns = ctx.turns, None
+        side = _side_stream(A_loc, nshards)
+        compute = torch.cuda.current_stream(A_loc.device) if side else None
+        back = tuple((dst, src) for src, dst in ring_perm(nshards))
+        dA = torch.zeros_like(A_loc)
+        held = None      # the cotangent of the block held at turn s
+        for s in reversed(range(nshards)):
+            W, lta = turns.pop()
+            r0 = _first_row(index, s, nshards, rpd)
+            G = (2 * lta.view(K, rpd, -1) * g[:, None, :]).view(K * rpd, -1)
+            dW = G @ A_loc[r0:].T                            # [K M / P, M - r0]
+            if side is not None:
+                side.wait_stream(compute)
+                dW.record_stream(side)
+            with torch.cuda.stream(side):
+                if held is None:
+                    held = A_loc.new_zeros((K, M, rpd))
+                held[:, r0:] += dW.view(K, rpd, -1).transpose(1, 2)
+                if s:
+                    held = ppermute(held, group, back)
+            dA[r0:].addmm_(W.T, G)
+            del W, lta, G, dW        # this turn's rows go before the next's
+        if side is not None:
+            compute.wait_stream(side)
+            held.record_stream(compute)
+        return held, dA, None, None, None, None
 
 
 def _conditional_local(layer, X_loc, *, group, index: int, nshards: int,
@@ -264,7 +367,7 @@ def _conditional_local(layer, X_loc, *, group, index: int, nshards: int,
     fmean = A_loc.T @ all_gather(q_mu_loc, group)            # [N / P, K]
 
     tril = (torch.arange(M, device=dev)[:, None] >= gloc[None, :]).to(dtype)
-    extra = _quad_ring(q_sqrt_raw * tril, A_loc, group=group,
+    extra = _quad_ring(q_sqrt_raw * tril, A_loc, group=group, index=index,
                        nshards=nshards)
     return fmean, fvar0[:, None] + extra.T                   # [N / P, K]
 
